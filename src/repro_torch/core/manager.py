@@ -1,0 +1,368 @@
+# Port of repro/core/manager.py.  What differs:
+# * flatten_state keeps torch tensors as they are; maybe_flush clones a
+#   tensor leaf on its own device.
+# * In persist_mode="delta" a tensor leaf's mask is computed on its device
+#   (the delta_snapshot CUDA kernel on the card) against a shadow of the last
+#   image this manager flushed for that name; the leaf then goes to the host
+#   and into arena.flush as before, and the clone becomes the shadow.
+# * ManagerStats also times each flush's parts: mask, device-to-host copy,
+#   arena write.
+# * restore returns tensors on the device of init_state's tensor leaves and,
+#   in delta mode, seeds the shadows with what it restored.
+# * An async flush of a CUDA leaf runs on the stream that produced its clone.
+"""EasyCrash production runtime for distributed training loops.
+
+This is the framework-facing layer: given a train-state pytree and a
+:class:`PersistPlan`-style policy, the manager
+
+* flushes the plan's state leaves to a host-local :class:`NVMArena`
+  (asynchronously, on a writer thread — a straggling host never blocks the
+  step, and a skipped flush only increases staleness, which EasyCrash
+  tolerates by construction);
+* performs delta flushes: only blocks that changed since the last flush move
+  (the mask of a CUDA leaf comes from the ``delta_snapshot`` CUDA kernel);
+* takes full coordinated checkpoints at the Young interval stretched by the
+  measured recomputability (MTBF' = MTBF / (1 - R));
+* on restart, tries the EasyCrash path (arena image + acceptance
+  verification) before falling back to the last full checkpoint.
+
+Every host persists only its own shards: the mechanism is O(local bytes) and
+has zero cross-host traffic, so it scales to arbitrarily many nodes.
+"""
+from __future__ import annotations
+
+import contextlib
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .arena import NVMArena
+from .delta_persist import _byte_tensor, delta_block_mask, persist_mask_for
+from .efficiency import young_interval
+
+
+def _cast_like(img: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """Cast a loaded array to the target dtype; np.load round-trips extension
+    dtypes (bfloat16) as raw void bytes, which only ``view`` can recover."""
+    if img.dtype == target.dtype:
+        return img
+    if img.dtype.kind == "V" and img.dtype.itemsize == target.dtype.itemsize:
+        return img.view(target.dtype)
+    return img.astype(target.dtype)
+
+
+def _tensor_like(img: np.ndarray, target: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """An arena image as a tensor of ``target``'s dtype, on its device, and
+    whether it holds the image's bytes unchanged (no dtype conversion)."""
+    cast = _cast_like(img, torch.empty(0, dtype=target.dtype).numpy())
+    same_bytes = cast.dtype == img.dtype or img.dtype.kind == "V"
+    return torch.from_numpy(np.ascontiguousarray(cast)).to(target.device), same_bytes
+
+
+def flatten_state(state: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Flatten a nested dict pytree into 'a/b/c' -> leaf; a torch tensor
+    stays a tensor, anything else becomes an ndarray."""
+    out: Dict[str, Any] = {}
+    for k, v in state.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(flatten_state(v, key + "/"))
+        else:
+            out[key] = v if isinstance(v, torch.Tensor) else np.asarray(v)
+    return out
+
+
+def unflatten_state(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in flat.items():
+        parts = k.split("/")
+        d = out
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = v
+    return out
+
+
+@dataclass
+class FlushPolicy:
+    """Production analogue of :class:`PersistPlan`.
+
+    ``leaves``: state leaves (flat names, prefix match allowed) to persist.
+    ``every_steps``: flush cadence in optimizer steps (the 'frequency x').
+    ``async_flush``: persist on a background thread (drops to sync in tests).
+    ``max_pending``: back-pressure bound; beyond it flushes are *skipped*
+    (bounded staleness instead of a stalled step — straggler mitigation).
+    ``persist_mode``: which blocks a flush moves to NVM —
+    ``"auto"`` (arena's own byte diff), ``"delta"`` (incremental: changed
+    blocks only, detected by the ``delta_snapshot`` kernel for a CUDA leaf,
+    its plain version on the CPU otherwise) or ``"full"`` (whole-object
+    rewrite, the C/R-style baseline).  All
+    three produce byte-identical NVM images; they differ only in write
+    traffic, which ``ManagerStats.bytes_written`` measures.
+    """
+
+    leaves: Tuple[str, ...]
+    every_steps: int = 1
+    async_flush: bool = True
+    max_pending: int = 2
+    persist_mode: str = "auto"
+
+    def __post_init__(self):
+        if self.persist_mode not in ("auto", "delta", "full"):
+            raise ValueError(
+                f"unknown persist_mode {self.persist_mode!r}; use 'auto', 'delta' or 'full'"
+            )
+
+
+@dataclass
+class ManagerStats:
+    flushes_issued: int = 0
+    flushes_skipped: int = 0
+    blocks_written: int = 0
+    bytes_written: int = 0
+    checkpoints_taken: int = 0
+    easycrash_restores: int = 0
+    checkpoint_restores: int = 0
+    #: host seconds spent in flushes on the mask (for a device leaf: its
+    #: kernel and the mask's copy to the host), on the leaf's device-to-host
+    #: copy, and in arena writes
+    mask_seconds: float = 0.0
+    copy_seconds: float = 0.0
+    arena_seconds: float = 0.0
+
+
+class EasyCrashManager:
+    def __init__(
+        self,
+        arena: NVMArena,
+        policy: FlushPolicy,
+        checkpoint_save: Optional[Callable[[int, Mapping[str, Any]], None]] = None,
+        checkpoint_restore: Optional[Callable[[], Optional[Tuple[int, Dict[str, Any]]]]] = None,
+        mtbf: Optional[float] = None,
+        t_chk: Optional[float] = None,
+        recomputability: float = 0.0,
+        step_time: float = 1.0,
+    ):
+        self.arena = arena
+        self.policy = policy
+        self.checkpoint_save = checkpoint_save
+        self.checkpoint_restore = checkpoint_restore
+        self.stats = ManagerStats()
+        #: per tensor leaf, the last image this manager flushed or restored,
+        #: on the leaf's device (delta mode only)
+        self._shadow: Dict[str, torch.Tensor] = {}
+        self._q: "queue.Queue[Optional[Tuple[int, Dict[str, Any], Dict[torch.device, Any]]]]" = (
+            queue.Queue()
+        )
+        self._worker: Optional[threading.Thread] = None
+        self._last_error: Optional[BaseException] = None
+        if policy.async_flush:
+            self._worker = threading.Thread(target=self._drain, daemon=True)
+            self._worker.start()
+        # checkpoint cadence in *steps*, from Young's formula on the stretched
+        # MTBF (paper §7); None disables periodic checkpoints.
+        self.checkpoint_every: Optional[int] = None
+        if mtbf is not None and t_chk is not None:
+            mtbf_ec = mtbf / max(1e-9, (1.0 - min(recomputability, 0.999999)))
+            self.checkpoint_every = max(1, int(young_interval(t_chk, mtbf_ec) / step_time))
+
+    # ------------------------------------------------------------------ flush
+    @staticmethod
+    def _match(name: str, leaf: str) -> bool:
+        if leaf.endswith("*"):
+            return name.startswith(leaf[:-1])
+        return name == leaf or name.startswith(leaf + "/")
+
+    def _selected(self, flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        return {
+            name: arr
+            for name, arr in flat.items()
+            if any(self._match(name, l) for l in self.policy.leaves)
+        }
+
+    def maybe_flush(self, step: int, state: Mapping[str, Any]) -> bool:
+        """Issue an EasyCrash persistence op if the cadence says so.
+
+        Returns True if a flush was issued (or enqueued)."""
+        if step % self.policy.every_steps != 0:
+            return False
+        flat = flatten_state(state)
+        sel = self._selected(flat)
+        sel["__step__"] = np.asarray(step, dtype=np.int64)
+        payload: Dict[str, Any] = {}
+        #: per CUDA device, the stream the clones were made on: the flush of
+        #: those clones (on the writer thread too) runs on it
+        streams: Dict[torch.device, Any] = {}
+        for k, v in sel.items():
+            if isinstance(v, torch.Tensor):
+                payload[k] = v.detach().clone(memory_format=torch.contiguous_format)
+                if v.is_cuda:
+                    streams.setdefault(v.device, torch.cuda.current_stream(v.device))
+            else:
+                payload[k] = np.array(v, copy=True)
+        if self.policy.async_flush:
+            if self._q.qsize() >= self.policy.max_pending:
+                self.stats.flushes_skipped += 1   # straggler mitigation: skip
+                return False
+            self._q.put((step, payload, streams))
+        else:
+            self._flush_now(step, payload, streams)
+        self.stats.flushes_issued += 1
+        return True
+
+    def _flush_now(self, step: int, payload: Mapping[str, Any],
+                   streams: Optional[Mapping[torch.device, Any]] = None) -> None:
+        for name, arr in payload.items():
+            t0 = time.perf_counter()
+            if isinstance(arr, torch.Tensor):
+                on_stream = (torch.cuda.stream(streams[arr.device]) if arr.is_cuda and streams
+                             else contextlib.nullcontext())
+                with on_stream:
+                    mask, host = self._tensor_mask(name, arr)
+            else:
+                mask = persist_mask_for(
+                    self.policy.persist_mode, self.arena.peek(name), arr,
+                    self.arena.block_bytes,
+                )
+                host = arr
+                self.stats.mask_seconds += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            written = self.arena.flush(name, host, dirty_resident_mask=mask)
+            self.stats.arena_seconds += time.perf_counter() - t1
+            self.stats.blocks_written += written
+            self.stats.bytes_written += written * self.arena.block_bytes
+        self.arena.save_manifest()
+
+    def _tensor_mask(self, name: str, live: torch.Tensor) -> Tuple[Optional[np.ndarray], np.ndarray]:
+        """Flush mask and host copy of a tensor leaf.
+
+        In delta mode the mask is computed on the leaf's device against the
+        shadow of the last image this manager flushed or restored.  That is
+        exact: every flush leaves the arena image equal to the flushed bytes.
+        A manager with no shadow of the right size (a fresh one over a used
+        arena) copies the arena image to the device first; a CUDA leaf's mask
+        comes from the kernel either way.
+        """
+        mode = self.policy.persist_mode
+        cur = self.arena.peek(name)
+        shadow = self._shadow.pop(name, None)
+        nbytes = live.numel() * live.element_size()
+        t0 = time.perf_counter()
+        mask = None
+        if mode == "delta" and cur is not None and cur.nbytes == nbytes:
+            if shadow is None or shadow.numel() * shadow.element_size() != nbytes:
+                shadow = _byte_tensor(cur).to(live.device)
+            mask = delta_block_mask(shadow, live, self.arena.block_bytes).cpu().numpy()
+        t1 = time.perf_counter()
+        host = live.cpu().numpy()
+        t2 = time.perf_counter()
+        if mask is None:  # auto, full, or a first flush / reallocation: no compare
+            mask = persist_mask_for(mode, cur, host, self.arena.block_bytes)
+        if mode == "delta":
+            self._shadow[name] = live
+        self.stats.mask_seconds += (t1 - t0) + (time.perf_counter() - t2)
+        self.stats.copy_seconds += t2 - t1
+        return mask, host
+
+    def _drain(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            try:
+                self._flush_now(*item)
+            except BaseException as e:  # surfaced on barrier()
+                self._last_error = e
+
+    def barrier(self) -> None:
+        """Wait for all pending flushes (checkpoint/shutdown boundary)."""
+        if self.policy.async_flush:
+            while not self._q.empty():
+                time.sleep(0.001)
+            # one more roundtrip so an in-flight item finishes
+            self._q.put((int(-1), {}))
+            while not self._q.empty():
+                time.sleep(0.001)
+        if self._last_error is not None:
+            raise self._last_error
+
+    def close(self) -> None:
+        if self._worker is not None:
+            self.barrier()
+            self._q.put(None)
+            self._worker.join(timeout=5)
+            self._worker = None
+
+    # ------------------------------------------------------------- checkpoint
+    def maybe_checkpoint(self, step: int, state: Mapping[str, Any]) -> bool:
+        if (
+            self.checkpoint_save is None
+            or self.checkpoint_every is None
+            or step == 0
+            or step % self.checkpoint_every != 0
+        ):
+            return False
+        self.barrier()
+        self.checkpoint_save(step, state)
+        self.stats.checkpoints_taken += 1
+        return True
+
+    # ---------------------------------------------------------------- restore
+    def restore(
+        self,
+        init_state: Mapping[str, Any],
+        verify: Optional[Callable[[Dict[str, Any], int], bool]] = None,
+    ) -> Tuple[Dict[str, Any], int, str]:
+        """Recovery: EasyCrash path first, checkpoint fallback second.
+
+        ``verify(state, step)`` is the acceptance hook deciding whether the
+        NVM image is usable; recomputability-by-construction means it may
+        accept inconsistent-but-convergent images.
+        Returns (state, step, source) with source in
+        {"easycrash", "checkpoint", "fresh"}.
+        """
+        flat_init = flatten_state(init_state)
+        # --- EasyCrash path: arena image over init state
+        names = set(self.arena.names())
+        if "__step__" in names:
+            merged = dict(flat_init)
+            seeds: Dict[str, torch.Tensor] = {}  # restored tensors holding image bytes
+            for name in names:
+                if name == "__step__" or name.startswith("__chk__/"):
+                    continue
+                if name in merged:
+                    img = self.arena.get(name)
+                    target = merged[name]
+                    if img.shape != tuple(target.shape):
+                        continue
+                    if isinstance(target, torch.Tensor):
+                        merged[name], same_bytes = _tensor_like(img, target)
+                        if same_bytes:
+                            seeds[name] = merged[name]
+                    else:
+                        merged[name] = _cast_like(img, target)
+            step = int(self.arena.get("__step__"))
+            candidate = unflatten_state(merged)
+            if verify is None or verify(candidate, step):
+                if self.policy.persist_mode == "delta":
+                    # the next delta flush compares against these on the
+                    # device; clones, since the caller may update in place
+                    self._shadow.update({
+                        k: v.clone() for k, v in seeds.items()
+                        if any(self._match(k, l) for l in self.policy.leaves)
+                    })
+                self.stats.easycrash_restores += 1
+                return candidate, step, "easycrash"
+        # --- checkpoint fallback
+        if self.checkpoint_restore is not None:
+            got = self.checkpoint_restore()
+            if got is not None:
+                step, state = got
+                self.stats.checkpoint_restores += 1
+                return state, step, "checkpoint"
+        return dict(init_state), 0, "fresh"
