@@ -17,7 +17,21 @@ Phases, in order; any failure ends the run with a nonzero exit:
    runs under ``EasyCrashManager`` with that plan and delta flushes whose
    masks come from the ``delta_snapshot`` kernel; then a crash, a restore
    from the NVM arena, and more iterations from the restored state, each
-   flushed again through the kernel against the shadow the restore left.
+   flushed again through the kernel against the shadow the restore left;
+5. flash attention: the ``flash_attention`` kernel against its plain
+   version on the card over a grid of dtypes, head dims, masks, lengths and
+   tiles, then kernel, plain version and ``F.scaled_dot_product_attention``
+   (the library yardstick, never on the path) timed at the serving path's
+   prefill shape beside the bound;
+6. decode characterization: the decode crash campaign reproduces its pinned
+   golden on the card, and ``run_workflow`` gives the JAX package's plan;
+7. serving at full width: StableLM-2-1.6B (24 layers, 1.64 B parameters,
+   random bf16 weights from a seeded generator) prefills 4 prompts of 1024
+   tokens with the flash-attention kernel (checked against the reference
+   prefill in float32 weights), decodes 64 tokens and delta-flushes the KV cache every 16
+   steps through ``delta_snapshot``; then a crash at step 32 and a resume
+   from the reattached arena, whose token stream must equal the
+   uninterrupted one.
 
 The second line from the end is a JSON object with one entry per kernel,
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -26,19 +40,25 @@ import the port and exits with 1.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.convert import state_to_torch  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.convert import host_array, state_to_torch  # noqa: E402
+from repro_torch import resolve_device  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     CrashTester,
     EasyCrashManager,
@@ -54,9 +74,16 @@ from repro_torch.hpc.suite import ci_app, default_cache  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.delta_snapshot import dirty_block_mask  # noqa: E402
 from repro_torch.kernels.delta_snapshot.ref import dirty_block_mask_reference  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.steps import make_decode_fn  # noqa: E402
+from repro_torch.models import init_cache, init_params, prefill  # noqa: E402
 
-#: H100 SXM device-memory rate, bytes/s (NVIDIA data sheet)
+#: H100 SXM device-memory rate, bytes/s, and dense bf16 tensor-core rate,
+#: FLOP/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989.4e12
 #: the deployment's grid: u is 8192^2 float32 = 256 MiB
 DEPLOY_GRID = 8192
 DEPLOY_ITERS = 16
@@ -66,6 +93,15 @@ GOLDENS = os.path.join(ROOT, "tests", "golden", "campaign_goldens.json")
 #: the plan the JAX package's run_workflow gives for ci_app("sor"),
 #: WorkflowConfig(n_tests=24, cache=default_cache(app), seed=0)
 JAX_SOR_PLAN = (("u",), {1: 4, 2: 1})
+#: the same for ci_app("decode")
+JAX_DECODE_PLAN = (("tokens",), {1: 1})
+#: the serving path: StableLM-2-1.6B unscaled, 4 prompts of 1024 tokens
+SERVE_ARCH = "stablelm-1.6b"
+SERVE_PROMPTS, SERVE_PROMPT_LEN, SERVE_STEPS, SERVE_FLUSH_EVERY = 4, 1024, 64, 16
+SERVE_CRASH_AT = 32
+SERVE_WORKDIR = os.path.join(ROOT, "build", "chip_smoke_serve")
+#: the prefill's attention shape (B, S, H, D) at full width
+ATTN_SHAPE = (SERVE_PROMPTS, SERVE_PROMPT_LEN, 32, 64)
 
 
 def log(msg: str) -> None:
@@ -109,7 +145,7 @@ def phase_environment() -> str:
     log(f"[env] torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    paths = _build.build("delta_snapshot")
+    paths = _build.build("delta_snapshot", "flash_attention")
     log(f"[env] built {', '.join(os.path.relpath(str(p), ROOT) for p in paths.values())} "
         f"in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.BUILD_LOGS.items():
@@ -353,11 +389,296 @@ def phase_deploy(dev: str, plan: PersistPlan) -> dict:
     return out
 
 
+# --------------------------------------------------------- 5. flash attention
+def _flash_cases():
+    """(label, shape (B,S,H,D), dtype, causal, window, block)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128, 256):
+            for causal, window in ((True, None), (False, None), (True, 64), (True, 128),
+                                   (False, 64)):
+                for s in (128, 256, 512):
+                    for blk in (64, 128):
+                        yield (f"{dtype} D={d} S={s} blk={blk} causal={causal} window={window}",
+                               (1, s, 2, d), dtype, causal, window, blk)
+        yield f"{dtype} ragged S=100", (2, 100, 3, 64), dtype, True, None, 128
+    yield "path shape", ATTN_SHAPE, torch.bfloat16, True, None, 128
+
+
+def attn_bound_ms(b: int, s: int, h: int, d: int) -> tuple:
+    """Least time for causal attention: max of the FLOPs (two products over
+    the causal half, 4 B H D S(S+1)/2) at the bf16 tensor-core rate and the
+    bytes (q, k, v read once, out written once, 2 bytes each) at the
+    device-memory rate."""
+    flops = 4 * b * h * d * s * (s + 1) / 2
+    nbytes = 4 * b * s * h * d * 2
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def phase_flash(dev: str) -> dict:
+    """Kernel against plain version: 2e-5 (abs and rel) in float32, 2e-2 in
+    bfloat16 (tests/test_kernels.py's tolerances); tile independence to
+    1e-5; then the path's shape timed."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    max_err, n = 0.0, 0
+    for label, shape, dtype, causal, window, blk in _flash_cases():
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+        got = flash_attention(q, k, v, causal=causal, window=window, block_q=blk, block_k=blk)
+        torch.cuda.synchronize()
+        want = attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=causal, window=window).transpose(1, 2)
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"flash_attention {label}: max |kernel - plain| {err:.3e} "
+                                 f"over the tolerance {tol}")
+        max_err, n = max(max_err, err), n + 1
+    q, k, v = (torch.randn(1, 256, 2, 64, generator=gen, device=dev) for _ in range(3))
+    a = flash_attention(q, k, v, block_q=32, block_k=32)
+    b = flash_attention(q, k, v, block_q=128, block_k=128)
+    tile_err = float((a - b).abs().max())
+    if tile_err > 1e-5:
+        raise AssertionError(f"flash_attention: kv tiles 32 and 64 differ by {tile_err:.3e}")
+    log(f"[flash] flash_attention within tolerance of its plain version in {n} cases "
+        f"(max |diff| {max_err:.3e}); kv tiles 32 vs 64 differ by {tile_err:.3e}")
+
+    bsz, s, h, d = ATTN_SHAPE
+    q, k, v = (torch.randn(ATTN_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain_ms = cuda_ms(lambda: attention_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                                   v.transpose(1, 2), causal=True))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    bound, bound_by = attn_bound_ms(bsz, s, h, d)
+    log(f"[flash] flash_attention at B={bsz} S={s} H={h} D={d} bf16 causal: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+        f"{bound / ms:.1%} of the bound)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+            "bound_by": bound_by, "max_abs_err": max_err}
+
+
+# ----------------------------------------------------- 6. decode characterize
+def phase_decode_characterize(dev: str) -> None:
+    with open(GOLDENS) as f:
+        goldens = json.load(f)
+    cfg = goldens["config"]
+    want = goldens["apps"]["decode"]
+    app = ci_app("decode", device=dev)
+    t0 = time.perf_counter()
+    camp = CrashTester(app, PersistPlan.none(), default_cache(app),
+                       seed=cfg["seed"]).run_campaign(cfg["n_tests"])
+    counts = {c: 0 for c in ("S1", "S2", "S3", "S4")}
+    for r in camp.records:
+        counts[r.outcome] += 1
+    got = {"counts": counts, "golden_iters": camp.golden_iters,
+           "crash_iters": [r.iter_idx for r in camp.records]}
+    log(f"[decode] decode campaign on {dev}: {got} in {time.perf_counter() - t0:.1f} s")
+    if got != want:
+        raise AssertionError(f"decode campaign differs from its golden {want}")
+    t0 = time.perf_counter()
+    plan = run_workflow(app, WorkflowConfig(n_tests=24, cache=default_cache(app), seed=0)).plan
+    log(f"[decode] run_workflow plan: {plan} in {time.perf_counter() - t0:.1f} s")
+    if (plan.objects, plan.region_freq) != JAX_DECODE_PLAN:
+        raise AssertionError(f"plan differs from the JAX plan {JAX_DECODE_PLAN}")
+
+
+# ------------------------------------------------------------------- 7. serve
+def _serve_args(workdir: str, inject: int = 0) -> argparse.Namespace:
+    return serve.parser().parse_args([
+        "--arch", SERVE_ARCH, "--full-size", "--prompts", str(SERVE_PROMPTS),
+        "--prompt-len", str(SERVE_PROMPT_LEN), "--decode-steps", str(SERVE_STEPS),
+        "--flush-every", str(SERVE_FLUSH_EVERY), "--workdir", workdir,
+        "--inject-failure-at", str(inject),
+    ])
+
+
+def _check_images(step: int, state: dict, arena: NVMArena) -> None:
+    """Every flushed image equals the live bytes."""
+    flat = {"tokens": state["tokens"], "cache/t": state["cache"]["t"]}
+    for kv in ("k", "v"):
+        flat[f"cache/group0/pos0/{kv}"] = state["cache"]["group0"]["pos0"][kv]
+    for name, live in flat.items():
+        img = arena.peek(name)
+        if img is None or img.tobytes() != host_array(live).tobytes():
+            raise AssertionError(f"step {step}: arena image of {name!r} != live bytes")
+
+
+def phase_serve(dev: str) -> dict:
+    cfg = get_arch(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(int(x.numel()) for x in _leaves(params))
+    log(f"[serve] {SERVE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters in {cfg.dtype}, init {time.perf_counter() - t0:.1f} s")
+    prompts = serve.make_prompts(cfg, SERVE_PROMPTS, SERVE_PROMPT_LEN, dev)
+
+    # the kernel prefill against the reference prefill (not the counted run).
+    # In float32 weights the two differ only in the order of sums: held to
+    # 2e-2.  In bfloat16 they differ by design as well (the reference rounds
+    # the softmax weights to bf16 before the product with v, the kernel
+    # keeps them f32, as JAX's Pallas path does), and 24 layers carry that
+    # difference on: printed, with the greedy tokens.
+    per_prefill = {}
+    for name, p in (("float32", _tree_map(params, lambda x: x.float())), ("bfloat16", params)):
+        c = dataclasses.replace(cfg, dtype=name)
+        before = flash_attention.launches
+        lk, _ = prefill(c, p, prompts, impl="kernel")
+        per_prefill[name] = flash_attention.launches - before
+        lr, _ = prefill(c, p, prompts, impl="reference")
+        torch.cuda.synchronize()
+        err = float((lk.float() - lr.float()).abs().max())
+        same = torch.equal(lk.argmax(-1), lr.argmax(-1))
+        log(f"[serve] {name} weights: kernel vs reference prefill logits {tuple(lk.shape)}: "
+            f"max |diff| {err:.3e} (|logit| up to {float(lr.float().abs().max()):.2f}); "
+            f"greedy tokens equal: {same}")
+        if name == "float32" and not torch.allclose(lk, lr, atol=2e-2, rtol=2e-2):
+            raise AssertionError("float32 kernel prefill logits differ from the reference's "
+                                 "beyond 2e-2")
+        del p, lk, lr
+        torch.cuda.empty_cache()
+    if set(per_prefill.values()) != {cfg.n_layers}:
+        raise AssertionError(f"a prefill launched flash_attention {per_prefill} times, "
+                             f"not once per layer ({cfg.n_layers})")
+
+    profile = _profile_decode(cfg, params, prompts, dev)
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(SERVE_WORKDIR, ignore_errors=True)
+    try:
+        flash_attention.launches = 0
+        dirty_block_mask.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        clean = serve.run(_serve_args(os.path.join(SERVE_WORKDIR, "clean")), params=params,
+                          prompts=prompts, on_flush=_check_images)
+        crash_dir = os.path.join(SERVE_WORKDIR, "crash")
+        try:
+            serve.run(_serve_args(crash_dir, SERVE_CRASH_AT), params=params, prompts=prompts,
+                      on_flush=_check_images)
+            raise AssertionError("the injected failure did not fire")
+        except serve.SimulatedFailure as e:
+            log(f"[serve] {e}; restarting from the arena")
+        resumed = serve.run(_serve_args(crash_dir), params=params, prompts=prompts,
+                            on_flush=_check_images)
+        flash_launches = flash_attention.launches
+        delta_launches = dirty_block_mask.launches
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(SERVE_WORKDIR, ignore_errors=True)
+    if not resumed["resumed"] or resumed["decode_steps"] != SERVE_STEPS - SERVE_CRASH_AT:
+        raise AssertionError(f"the restart did not resume at step {SERVE_CRASH_AT}")
+    if not np.array_equal(resumed["tokens"], clean["tokens"]):
+        diff = np.argwhere(resumed["tokens"] != clean["tokens"])
+        raise AssertionError(f"the resumed stream differs from the uninterrupted one at {diff[:4]}")
+    # 2 prefills (the uninterrupted run, the crashed run); the resume has none
+    if flash_launches != 2 * cfg.n_layers:
+        raise AssertionError(f"flash_attention launched {flash_launches} times, "
+                             f"expected {2 * cfg.n_layers}")
+    # one per tensor leaf (t, k, v, tokens) and delta flush: 3 in the clean run, 1
+    # before the crash (the first flush writes everything) and 2 after the resume
+    want_delta = 4 * (3 + 1 + 2)
+    if delta_launches != want_delta:
+        raise AssertionError(f"delta_snapshot launched {delta_launches} times, "
+                             f"expected {want_delta}")
+    row = cfg.n_kv_heads * cfg.head_dim * 2  # one token's K (or V) in one layer, bf16
+    kv_bytes = 2 * SERVE_FLUSH_EVERY * cfg.n_layers * SERVE_PROMPTS * row
+    later = clean["flush_bytes"][1:] + resumed["flush_bytes"]
+    if not all(kv_bytes < b <= kv_bytes + 64 * 16 for b in later):
+        raise AssertionError(f"delta flushes wrote {later} bytes, expected {kv_bytes} "
+                             f"of KV rows plus a few token blocks")
+    n_flush = len(clean["flush_bytes"])
+    split = clean["flush_split_ms"]
+    out = {
+        "prefill_ms": clean["prefill_ms"],
+        "decode_ms_per_step": clean["decode_ms_per_step"],
+        "tokens_per_s": clean["tokens_per_s"],
+        "flush_ms_mean": clean["flush_ms"] / n_flush,
+        "flush_split_ms_mean": {k: v / n_flush for k, v in split.items()},
+        "flush_bytes": clean["flush_bytes"],
+        "resumed_flush_bytes": resumed["flush_bytes"],
+        "kv_cache_bytes_per_leaf": cfg.n_layers * SERVE_PROMPTS * (SERVE_PROMPT_LEN +
+                                                                   SERVE_STEPS + 1) * row,
+        "peak_device_bytes": peak,
+        "flash_launches": flash_launches,
+        "delta_launches": delta_launches,
+        "decode_profile": profile,
+    }
+    log(f"[serve] prefill {out['prefill_ms']:.1f} ms, decode {out['decode_ms_per_step']:.2f} "
+        f"ms/step, flush {out['flush_ms_mean']:.1f} ms mean of {n_flush} (mask "
+        f"{out['flush_split_ms_mean']['mask_seconds']:.1f}, device-to-host "
+        f"{out['flush_split_ms_mean']['copy_seconds']:.1f}, arena "
+        f"{out['flush_split_ms_mean']['arena_seconds']:.1f} ms); bytes per flush "
+        f"{clean['flush_bytes']}, after the resume {resumed['flush_bytes']}")
+    log(f"[serve] resumed stream equals the uninterrupted one ({resumed['tokens'].shape}); "
+        f"launches: flash_attention {flash_launches}, delta_snapshot {delta_launches}; "
+        f"peak device memory {peak} bytes")
+    return out
+
+
+def _profile_decode(cfg, params, prompts, dev: str, steps: int = 8) -> dict:
+    """Device time of ``steps`` decode steps from torch.profiler (CUDA
+    kernels' self time) against their host-clock wall time: the device's
+    idle share, and the kernels that take the most device time."""
+    logits, pcache = prefill(cfg, params, prompts, impl="kernel")
+    max_len = SERVE_PROMPT_LEN + steps + 1
+    cache = serve._splice_cache(cfg, init_cache(cfg, SERVE_PROMPTS, max_len, dev), pcache,
+                                SERVE_PROMPT_LEN)
+    step_fn = make_decode_fn(cfg)
+    token = logits.argmax(dim=-1).to(torch.int32)[:, None]
+    del logits, pcache
+    token, cache = step_fn(params, cache, token)  # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            token, cache = step_fn(params, cache, token)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []  # kernels only: an op's row repeats the time of the kernels it launched
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.key, e.count))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    out = {"steps": steps, "wall_ms": wall_ms, "device_ms": device_ms,
+           "idle_share": (1 - device_ms / wall_ms) if device_ms else None,
+           "top": [(name[:60], round(ms, 3), n) for ms, name, n in rows[:6]]}
+    if device_ms:
+        log(f"[serve] profile of {steps} decode steps: wall {wall_ms:.1f} ms, device "
+            f"{device_ms:.1f} ms, idle share {out['idle_share']:.1%}; top kernels (ms, "
+            f"launches): {out['top']}")
+    else:
+        log("[serve] profile of decode steps: the profiler reported no device time "
+            "(idle share not measured)")
+    return out
+
+
+def _tree_map(tree, fn):
+    return {k: _tree_map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 2
-    dev = "cuda"
+    dev = resolve_device("cuda")  # also sets the matmul precision flags
     gpu = phase_environment()
     max_err = check_kernel(dev)
     kern = time_kernel(dev)
@@ -372,13 +693,19 @@ def main() -> int:
                              f"expected one per leaf and delta flush ({want})")
     log(f"[deploy] summary {json.dumps(deploy)}")
 
+    flash = phase_flash(dev)
+    phase_decode_characterize(dev)
+    served = phase_serve(dev)
+    log(f"[serve] summary {json.dumps(served)}")
+
     log(gpu)
     print(json.dumps({"kernels": [{
         "name": "delta_snapshot",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/delta_snapshot.cu",
         "replaces": "src/repro/kernels/delta_snapshot/kernel.py:26",
-        "launches": launches,
+        "launches": launches + served["delta_launches"],
+        "launches_by_path": {"sor_deploy": launches, "serve": served["delta_launches"]},
         "max_abs_err": max_err,
         "exact": max_err == 0,
         "ms": kern["ms"],
@@ -386,6 +713,18 @@ def main() -> int:
         "bound_ms": kern["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
+        "launches": served["flash_launches"],
+        "max_abs_err": flash["max_abs_err"],
+        "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,6 +10,9 @@
 # * restore returns tensors on the device of init_state's tensor leaves and,
 #   in delta mode, seeds the shadows with what it restored.
 # * An async flush of a CUDA leaf runs on the stream that produced its clone.
+# * A bfloat16 tensor leaf goes to the host, and into the arena, as the int16
+#   of the same bits (numpy has no bfloat16 without ml_dtypes); restore views
+#   those bytes back as bfloat16 on the leaf's device.
 """EasyCrash production runtime for distributed training loops.
 
 This is the framework-facing layer: given a train-state pytree and a
@@ -41,6 +44,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..convert import bf16_bits, host_array, to_tensor
 from .arena import NVMArena
 from .delta_persist import _byte_tensor, delta_block_mask, persist_mask_for
 from .efficiency import young_interval
@@ -59,9 +63,14 @@ def _cast_like(img: np.ndarray, target: np.ndarray) -> np.ndarray:
 def _tensor_like(img: np.ndarray, target: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     """An arena image as a tensor of ``target``'s dtype, on its device, and
     whether it holds the image's bytes unchanged (no dtype conversion)."""
+    if target.dtype == torch.bfloat16:  # the image holds its bits, or is cast to it
+        if bf16_bits(img):
+            return to_tensor(img, target.device, torch.bfloat16), True
+        return torch.from_numpy(np.array(img, copy=True)).to(target.device, target.dtype), False
     cast = _cast_like(img, torch.empty(0, dtype=target.dtype).numpy())
     same_bytes = cast.dtype == img.dtype or img.dtype.kind == "V"
-    return torch.from_numpy(np.ascontiguousarray(cast)).to(target.device), same_bytes
+    # ascontiguousarray would make a 0-d image (a step counter) 1-d
+    return torch.from_numpy(np.array(cast, order="C", copy=True)).to(target.device), same_bytes
 
 
 def flatten_state(state: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -259,7 +268,7 @@ class EasyCrashManager:
                 shadow = _byte_tensor(cur).to(live.device)
             mask = delta_block_mask(shadow, live, self.arena.block_bytes).cpu().numpy()
         t1 = time.perf_counter()
-        host = live.cpu().numpy()
+        host = host_array(live)
         t2 = time.perf_counter()
         if mask is None:  # auto, full, or a first flush / reallocation: no compare
             mask = persist_mask_for(mode, cur, host, self.arena.block_bytes)

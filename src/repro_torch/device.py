@@ -6,7 +6,9 @@ device raises, so a run that was meant for the card cannot silently measure
 the CPU.  Pass ``device="cpu"`` explicitly to run on the host (the tests do).
 
 Resolution also turns TF32 off for float32 matmuls and convolutions, so a
-float32 result on the card is a float32 result.
+float32 result on the card is a float32 result, and bfloat16 reduced
+precision off for bfloat16 matmuls, so their sums run in float32 as XLA's
+do.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ def resolve_device(device: str | torch.device = "cuda") -> str:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
     return str(dev)

@@ -1,7 +1,7 @@
-# Port of repro/hpc/suite.py: the registry holds the ported apps only (sor),
-# and get_app of an app of the JAX suite that is not ported yet raises,
-# naming its ROADMAP item.  CI_SIZES, BENCH_SIZES, FAULT_SWEEP_APPS and the
-# cache sizing are copied unchanged.
+# Port of repro/hpc/suite.py: the registry holds the ported apps only (sor
+# and the model stack's decode), and get_app of an app of the JAX suite that
+# is not ported yet raises, naming its ROADMAP item.  CI_SIZES, BENCH_SIZES,
+# FAULT_SWEEP_APPS and the cache sizing are copied unchanged.
 """Suite-level helpers: canonical cache sizing + CI-sized app instances.
 
 The cache-capacity : working-set ratio is the lever that controls how long
@@ -32,7 +32,6 @@ NOT_PORTED: Dict[str, str] = {
     "montecarlo": "module item 4.5",
     "mg": "module item 4.6",
     "lm-train": "module item 6",
-    "decode": "module item 6",
 }
 
 
@@ -45,6 +44,17 @@ def register_app(name: str, factory: Callable[..., IterativeApp]) -> None:
     if not callable(factory):
         raise TypeError(f"factory for {name!r} must be callable")
     _APP_FACTORIES[str(name)] = factory
+
+
+# the model stack's decode app registers lazily, so importing the suite never
+# pulls in the transformer
+def _decode_factory(**params) -> IterativeApp:
+    from ..models.serve_app import DecodeApp
+
+    return DecodeApp(**params)
+
+
+register_app("decode", _decode_factory)
 
 
 def app_names() -> Tuple[str, ...]:

@@ -5,5 +5,6 @@ kernel for a CUDA tensor, runs the plain version for a CPU tensor, counts
 launches) and ``ref.py`` (the plain PyTorch version).  CUDA sources live in
 ``csrc/`` and are compiled at first use by :mod:`._build`.
 
-  delta_snapshot  — dirty-block detection for EasyCrash delta flushes
+  delta_snapshot   — dirty-block detection for EasyCrash delta flushes
+  flash_attention  — blockwise online-softmax attention (prefill)
 """

@@ -29,6 +29,13 @@ SIGNATURES: Dict[str, Tuple[str, tuple, type]] = {
          ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p),
         ctypes.c_int,
     ),
+    "flash_attention": (
+        "flash_attention_fwd",
+        (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p),
+        ctypes.c_int,
+    ),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

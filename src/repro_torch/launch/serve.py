@@ -1,0 +1,236 @@
+# Port of repro/launch/serve.py.  What differs:
+# * --device (default cuda; raises without CUDA unless --device cpu).  On a
+#   CUDA device the prefill runs the flash-attention kernel (impl="kernel");
+#   on the CPU its plain version (impl="reference").
+# * Weights come from a torch.Generator seeded with --seed, the prompts from
+#   one seeded with 7 (JAX's PRNGKey(seed) and PRNGKey(7) give other
+#   numbers); run() also takes the weights and prompts from its caller.
+# * The cache and a token buffer of the full (B, prompt + decode + 1)
+#   width stay on the device, and the manager gets those tensors: there is
+#   no per-step host copy (the manager copies at flush time).  JAX flushes
+#   the growing concatenation of the tokens instead; here the tokens leaf
+#   keeps one size, so its flushes are delta flushes too, and the positions
+#   not decoded yet hold 0.  A resume restores through the manager, which
+#   seeds its delta shadows on the device.
+# * run() times prefill, decode and flushes (synchronizing the device) and
+#   returns the token stream; on_flush lets a caller check each flush.
+# * The default --workdir is build/repro_torch_serve in the repository.
+# * --fleet raises NotImplementedError: fleetsim is not copied yet (ROADMAP,
+#   module item 10 and "Copied, not shared").
+"""Batched decode server with EasyCrash KV-cache persistence.
+
+Serves a (reduced-by-default) architecture: prefill a batch of prompts,
+decode greedily, and persist the decode cache incrementally so a crashed
+server resumes sessions without re-running prefill.
+``--inject-failure-at`` kills the server mid-stream to demonstrate the
+recovery path: the restart reloads the cache and tokens from the arena and
+continues.
+
+Example:
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --prompts 4 --decode-steps 64 --inject-failure-at 32
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from ..configs import get_arch
+from ..convert import host_array
+from ..core.arena import NVMArena
+from ..core.manager import EasyCrashManager, FlushPolicy
+from ..device import resolve_device
+from ..models import init_cache, init_params, scaled_down
+from .steps import make_decode_fn, make_prefill_step
+
+DEFAULT_WORKDIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_serve"
+
+
+class SimulatedFailure(RuntimeError):
+    pass
+
+
+def _sync(device: str) -> None:
+    if device.startswith("cuda"):
+        torch.cuda.synchronize(device)
+
+
+def make_prompts(cfg, n: int, length: int, device: str, seed: int = 7) -> torch.Tensor:
+    """(n, length) int32 prompt ids drawn from a generator seeded ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (n, length), generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+def run(args, params: Optional[Dict[str, Any]] = None, prompts: Optional[torch.Tensor] = None,
+        on_flush: Optional[Callable[[int, Dict[str, Any], NVMArena], None]] = None
+        ) -> Dict[str, Any]:
+    """Serve once: prefill (or resume from the arena), decode, flush.
+
+    ``params`` and ``prompts`` replace the seeded ones; ``on_flush(step,
+    state, arena)`` runs after every flush.  Returns the stats, with the
+    token stream (B, prompt + 1 + decode) under ``"tokens"``.
+    """
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if not args.full_size:
+        cfg = scaled_down(cfg, width=args.width)
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed))
+    impl = "kernel" if device.startswith("cuda") else "reference"
+    prefill_fn = make_prefill_step(cfg, impl)
+    decode_fn = make_decode_fn(cfg)
+
+    os.makedirs(args.workdir, exist_ok=True)
+    arena_dir = os.path.join(args.workdir, "serve_arena")
+    try:
+        arena = NVMArena.reattach(arena_dir)
+        resumed = True
+    except Exception:
+        arena = NVMArena(backing_dir=arena_dir)
+        resumed = False
+    policy = FlushPolicy(leaves=("cache", "tokens"), every_steps=args.flush_every,
+                         async_flush=False, persist_mode=args.persist_mode)
+    mgr = EasyCrashManager(arena, policy)
+
+    max_len = args.prompt_len + args.decode_steps + 1
+    if prompts is None:
+        prompts = make_prompts(cfg, args.prompts, args.prompt_len, device)
+    prompts = prompts.to(device=device, dtype=torch.int32)
+    p0 = args.prompt_len  # the first decoded token sits at p0
+    tokens = torch.zeros((args.prompts, max_len), dtype=torch.int32, device=device)
+    tokens[:, :p0] = prompts
+
+    prefill_s = 0.0
+    if resumed and "__step__" in arena:
+        start = int(arena.get("__step__"))
+        print(f"[restore] resuming decode at step {start} from arena")
+        template = {"cache": init_cache(cfg, args.prompts, max_len, device), "tokens": tokens}
+        state, _, source = mgr.restore(template)
+        if source != "easycrash":
+            raise RuntimeError(f"the arena at {arena_dir} did not restore (source {source!r})")
+        cache, tokens = state["cache"], state["tokens"]
+        token = tokens[:, p0 + start:p0 + start + 1]
+    else:
+        start = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, pcache = prefill_fn(params, {"tokens": prompts})
+        cache = _splice_cache(cfg, init_cache(cfg, args.prompts, max_len, device), pcache,
+                              args.prompt_len)
+        token = logits.argmax(dim=-1).to(torch.int32)[:, None]
+        tokens[:, p0] = token[:, 0]
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+
+    decode_s = flush_s = 0.0
+    flush_bytes = []
+    for step in range(start, args.decode_steps):
+        t0 = time.perf_counter()
+        token, cache = decode_fn(params, cache, token)
+        tokens[:, p0 + 1 + step] = token[:, 0]
+        _sync(device)
+        t1 = time.perf_counter()
+        decode_s += t1 - t0
+        before = mgr.stats.bytes_written
+        state = {"cache": cache, "tokens": tokens}
+        if mgr.maybe_flush(step + 1, state):
+            flush_s += time.perf_counter() - t1
+            flush_bytes.append(mgr.stats.bytes_written - before)
+            if on_flush is not None:
+                on_flush(step + 1, state, arena)
+        if args.inject_failure_at and step + 1 == args.inject_failure_at:
+            raise SimulatedFailure(f"injected failure at decode step {step + 1}")
+    out = host_array(tokens)
+    n = args.decode_steps - start
+    st = mgr.stats
+    stats: Dict[str, Any] = {
+        "decode_steps": n,
+        "tokens_per_s": n * args.prompts / max(decode_s, 1e-9),
+        "blocks_written": st.blocks_written,
+        "bytes_written": st.bytes_written,
+        "resumed": resumed,
+        "output_shape": list(out.shape),
+        "prefill_ms": prefill_s * 1e3,
+        "decode_ms_per_step": decode_s * 1e3 / max(n, 1),
+        "flush_ms": flush_s * 1e3,
+        "flush_bytes": flush_bytes,
+        "flush_split_ms": {k: getattr(st, k) * 1e3
+                           for k in ("mask_seconds", "copy_seconds", "arena_seconds")},
+    }
+    print("[done]", stats)
+    stats["tokens"] = out
+    mgr.close()
+    return stats
+
+
+def _splice_cache(cfg, full_cache: Dict[str, Any], prefill_cache: Dict[str, Any],
+                  prompt_len: int) -> Dict[str, Any]:
+    """Install prefill K/V into the right-sized decode cache (in place)."""
+    def splice(dst, src):
+        if isinstance(dst, dict):
+            return {k: splice(dst[k], src[k]) for k in dst}
+        if dst.dim() >= 3 and src.dim() == dst.dim() and dst.shape != src.shape:
+            # KV caches: (L, B, S, H, D): copy the prefix
+            n = min(src.shape[2], dst.shape[2])
+            dst[:, :, :n] = src[:, :, :n]
+            return dst
+        return src.to(dst.dtype) if src.shape == dst.shape else dst
+
+    out = splice({k: v for k, v in full_cache.items() if k != "t"},
+                 {k: v for k, v in prefill_cache.items() if k != "t"})
+    out["t"] = torch.tensor(prompt_len, dtype=torch.int32, device=full_cache["t"].device)
+    return out
+
+
+def parser() -> argparse.ArgumentParser:
+    """The CLI: the JAX launcher's flags, plus --device."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--full-size", action="store_true")
+    ap.add_argument("--width", type=int, default=128)
+    ap.add_argument("--prompts", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--decode-steps", type=int, default=64)
+    ap.add_argument("--flush-every", type=int, default=8)
+    ap.add_argument("--persist-mode", default="delta",
+                    choices=("auto", "delta", "full"),
+                    help="flush granularity: arena byte diff / delta_snapshot "
+                         "kernel (changed blocks only) / whole-object rewrite")
+    ap.add_argument("--workdir", default=str(DEFAULT_WORKDIR))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--inject-failure-at", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a CUDA device) or cpu")
+    ap.add_argument("--fleet", action="store_true",
+                    help="not ported yet: the fleet projection needs fleetsim")
+    ap.add_argument("--fleet-replicas", type=int, default=4)
+    ap.add_argument("--fleet-rate", type=float, default=0.0)
+    ap.add_argument("--fleet-mtbf", type=float, default=900.0)
+    ap.add_argument("--fleet-horizon", type=float, default=1800.0)
+    return ap
+
+
+def main(argv=None) -> Dict[str, Any]:
+    args = parser().parse_args(argv)
+    if args.fleet:
+        raise NotImplementedError(
+            "--fleet is not ported to torch yet: fleetsim is not copied "
+            "(ROADMAP, module item 10)"
+        )
+    try:
+        stats = run(args)
+    except SimulatedFailure as e:
+        print(f"[failure] {e}; restarting...")
+        args.inject_failure_at = 0
+        stats = run(args)
+    return stats
+
+
+if __name__ == "__main__":
+    main()

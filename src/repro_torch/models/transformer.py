@@ -1,0 +1,259 @@
+# Port of repro/models/transformer.py, the dense path.  What differs:
+# * Layer kinds "rec" and "rwkv", and MoE layers, raise NotImplementedError
+#   (ROADMAP, module item 7); loss_and_aux, param_specs and cache_specs are
+#   left out (training and sharding; module items 6 and 10).
+# * lax.scan over stacked layer parameters is a Python loop over index i of
+#   the same stacked (n, ...) tensors, so a JAX parameter tree converts leaf
+#   for leaf (convert.params_from_jax).  remat has no counterpart (no
+#   gradients here).
+# * init_params and init_cache take a torch.Generator / a device.
+# * decode_step writes the KV cache in place (see attention_decode) and
+#   keeps the position "t" as a 0-d int32 tensor on the device.
+# * An embedding lookup of an id outside [-V, V) gives NaN rows and a
+#   negative id in range counts from the end, as jnp.take does.
+# * The second norm of a layer reads the residual sum after attention
+#   unrounded, in f32 (_mlp_half), as XLA's compiled scan body does.
+# * with_logical is gone (a no-op on one card).
+"""LM assembly, dense path: embed -> layer loop -> logits.
+
+Per layer: RMSNorm -> GQA attention (optionally local-window) -> residual ->
+RMSNorm -> gated MLP -> residual.
+
+Entry points: ``init_params`` / ``forward`` / ``prefill`` / ``init_cache`` /
+``decode_step``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .attention import (
+    _split_heads,
+    attention_decode,
+    attention_full,
+    attn_params,
+    init_kv_cache,
+)
+from .config import ModelConfig
+from .layers import (
+    apply_rope,
+    dtype_of,
+    matmul,
+    mlp_apply,
+    mlp_params,
+    normal_init,
+    rms_norm,
+    rope_angles,
+)
+
+Params = Dict[str, Any]
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to torch yet (ROADMAP, module item 7)")
+
+
+def _check_kind(cfg: ModelConfig, kind: str) -> None:
+    if kind != "attn":
+        raise _unported(f"layer kind {kind!r}")
+    if cfg.moe is not None:
+        raise _unported("the MoE layer")
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a tree of stacked (n, ...) tensors (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ------------------------------------------------------------------- params
+def _sublayer_params(cfg: ModelConfig, kind: str, gen: torch.Generator, n: int) -> Dict:
+    _check_kind(cfg, kind)
+    dt = dtype_of(cfg)
+    return {
+        "norm1": torch.zeros((n, cfg.d_model), dtype=dt, device=gen.device),
+        "norm2": torch.zeros((n, cfg.d_model), dtype=dt, device=gen.device),
+        "attn": attn_params(cfg, gen, n),
+        "mlp": mlp_params(cfg, gen, n),
+    }
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """Random weights on ``gen``'s device, in the JAX package's tree layout."""
+    dt = dtype_of(cfg)
+    params: Params = {
+        "embed": normal_init(gen, (cfg.vocab, cfg.d_model), 1.0, dt),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = normal_init(gen, (cfg.d_model, cfg.vocab), cfg.d_model ** -0.5, dt)
+    for gi, (pattern, rep) in enumerate(cfg.groups):
+        params[f"group{gi}"] = {
+            f"pos{pi}": _sublayer_params(cfg, kind, gen, rep)
+            for pi, kind in enumerate(pattern)
+        }
+    return params
+
+
+# ------------------------------------------------------------------ forward
+def _apply_sublayer(
+    cfg: ModelConfig, kind: str, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
+    impl: str,
+) -> torch.Tensor:
+    _check_kind(cfg, kind)
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    h = attention_full(lp["attn"], h, cfg, positions, window=cfg.attn_window, impl=impl)
+    return _mlp_half(cfg, lp, x, h)
+
+
+def _mlp_half(cfg: ModelConfig, lp: Dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + y, then the second norm and the MLP, then the second residual.
+
+    Compiled XLA (excess precision allowed, its default) hands the second
+    norm the sum ``x + y`` unrounded, in f32, while the residual stream
+    takes it rounded to the model's dtype.  The port computes it the same
+    way; in f32 nothing changes.
+    """
+    s = x.float() + y.float()
+    h = rms_norm(s, lp["norm2"], cfg.norm_eps).to(x.dtype)
+    return s.to(x.dtype) + mlp_apply(lp["mlp"], h, cfg)
+
+
+def _run_groups(
+    cfg: ModelConfig, params: Params, x: torch.Tensor, positions: torch.Tensor, impl: str,
+) -> torch.Tensor:
+    for gi, (pattern, rep) in enumerate(cfg.groups):
+        gparams = params[f"group{gi}"]
+        for i in range(rep):
+            layer_params = _layer(gparams, i)
+            for pi, kind in enumerate(pattern):
+                x = _apply_sublayer(cfg, kind, layer_params[f"pos{pi}"], x, positions, impl)
+    return x
+
+
+def _take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """jnp.take(table, ids, axis=0): ids in [-V, 0) count from the end, ids
+    outside [-V, V) give NaN rows."""
+    v = table.shape[0]
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + v, ids)
+    ok = (ids >= 0) & (ids < v)
+    rows = table[ids.clamp(0, v - 1)]
+    return torch.where(ok[..., None], rows, torch.full((), float("nan"), dtype=table.dtype,
+                                                         device=table.device))
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+           patches: Optional[torch.Tensor]) -> torch.Tensor:
+    x = _take_rows(params["embed"], tokens)
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    return x
+
+
+def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return matmul(x, params["embed"].t())
+    return matmul(x, params["unembed"])
+
+
+def forward(
+    cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+    patches: Optional[torch.Tensor] = None, impl: str = "reference",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S_text); patches: (B, P, d) or None.
+    Returns (logits (B, S_total, V), aux_loss)."""
+    x = _embed(cfg, params, tokens, patches)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x = _run_groups(cfg, params, x, positions, impl)
+    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# -------------------------------------------------------------------- decode
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu") -> Dict:
+    cache: Dict[str, Any] = {"t": torch.zeros((), dtype=torch.int32, device=device)}
+    for gi, (pattern, rep) in enumerate(cfg.groups):
+        g: Dict[str, Any] = {}
+        for pi, kind in enumerate(pattern):
+            _check_kind(cfg, kind)
+            g[f"pos{pi}"] = init_kv_cache(cfg, rep, batch, max_len, window=cfg.attn_window,
+                                          device=device)
+        cache[f"group{gi}"] = g
+    return cache
+
+
+def decode_step(
+    cfg: ModelConfig, params: Params, token: torch.Tensor, cache: Dict,
+) -> Tuple[torch.Tensor, Dict]:
+    """token: (B, 1) int.  Returns (logits (B, 1, V), the cache with the new
+    token's K/V written in place and ``t`` advanced)."""
+    t = cache["t"]
+    x = _take_rows(params["embed"], token)
+    new_cache: Dict[str, Any] = {"t": t + 1}
+    for gi, (pattern, rep) in enumerate(cfg.groups):
+        gparams = params[f"group{gi}"]
+        gcache = cache[f"group{gi}"]
+        for i in range(rep):
+            layer_params = _layer(gparams, i)
+            for pi, kind in enumerate(pattern):
+                _check_kind(cfg, kind)
+                lp = layer_params[f"pos{pi}"]
+                lc = gcache[f"pos{pi}"]
+                hin = rms_norm(x, lp["norm1"], cfg.norm_eps)
+                y, _, _ = attention_decode(lp["attn"], hin, lc["k"][i], lc["v"][i], cfg, t,
+                                           window=cfg.attn_window)
+                x = _mlp_half(cfg, lp, x, y)
+        new_cache[f"group{gi}"] = gcache
+    return _logits(cfg, params, x), new_cache
+
+
+# ------------------------------------------------------------------- prefill
+def prefill(
+    cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+    patches: Optional[torch.Tensor] = None, impl: str = "reference",
+) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence pass that also builds the decode cache (K/V re-projected
+    per layer, as the JAX package does).  Returns (last-token logits (B, V),
+    cache)."""
+    x = _embed(cfg, params, tokens, patches)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    cache: Dict[str, Any] = {"t": torch.tensor(S, dtype=torch.int32, device=x.device)}
+
+    for gi, (pattern, rep) in enumerate(cfg.groups):
+        gparams = params[f"group{gi}"]
+        per_layer = []
+        for i in range(rep):
+            layer_params = _layer(gparams, i)
+            new_layer_cache = {}
+            for pi, kind in enumerate(pattern):
+                _check_kind(cfg, kind)
+                lp = layer_params[f"pos{pi}"]
+                hin = rms_norm(x, lp["norm1"], cfg.norm_eps)
+                y = attention_full(lp["attn"], hin, cfg, positions,
+                                   window=cfg.attn_window, impl=impl)
+                new_layer_cache[f"pos{pi}"] = _kv_for_cache(cfg, lp["attn"], hin, positions)
+                x = _mlp_half(cfg, lp, x, y)
+            per_layer.append(new_layer_cache)
+        cache[f"group{gi}"] = {
+            f"pos{pi}": {kv: torch.stack([c[f"pos{pi}"][kv] for c in per_layer])
+                         for kv in ("k", "v")}
+            for pi in range(len(pattern))
+        }
+    logits = _logits(cfg, params, x[:, -1:, :])
+    return logits[:, 0, :], cache
+
+
+def _kv_for_cache(cfg: ModelConfig, p: Dict, x: torch.Tensor, positions: torch.Tensor) -> Dict:
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    k = _split_heads(matmul(x, p["wk"]), hkv, dh)
+    v = _split_heads(matmul(x, p["wv"]), hkv, dh)
+    cos, sin = rope_angles(positions, dh, cfg.rope_theta)
+    k = apply_rope(k, cos, sin)
+    if cfg.attn_window:
+        k = k[:, -cfg.attn_window:]
+        v = v[:, -cfg.attn_window:]
+    return {"k": k, "v": v}

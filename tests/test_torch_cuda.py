@@ -1,5 +1,5 @@
 """The port on a CUDA device: the hand-written kernels against their plain
-versions, and the flush path through them.  Every test here needs a card
+versions, the flush path through them, and the serving path.  Every test here needs a card
 (marker ``cuda``) and skips without one; this file imports no jax, so it
 runs where only torch is installed:
 
@@ -15,6 +15,8 @@ from repro_torch.core.manager import EasyCrashManager, FlushPolicy
 from repro_torch.hpc.sor import SORApp
 from repro_torch.kernels.delta_snapshot import dirty_block_mask
 from repro_torch.kernels.delta_snapshot.ref import dirty_block_mask_reference
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +113,83 @@ def test_sor_iteration_stays_on_device():
         s = app.run_iteration(s)
     assert all(v.is_cuda for v in s.values())
     assert np.isfinite(app.progress(s))
+
+
+# ------------------------------------------------------------ flash attention
+#: tests/test_kernels.py's grid of (b, h, s, d, causal, window, block), plus
+#: D 256, a window under the block, and a ragged S
+FLASH_CASES = [
+    (2, 4, 256, 64, True, None, 128),
+    (1, 2, 128, 64, True, None, 64),
+    (2, 2, 256, 64, True, 64, 64),
+    (1, 3, 256, 128, False, None, 128),
+    (1, 1, 512, 64, True, 128, 128),
+    (1, 2, 256, 256, True, None, 128),
+    (1, 2, 256, 64, False, 8, 32),
+    (1, 2, 100, 64, True, None, 128),
+]
+
+
+def _flash_inputs(b, s, h, d, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,d,causal,window,blk", FLASH_CASES)
+def test_flash_kernel_equals_plain_version(b, h, s, d, causal, window, blk, dtype):
+    """2e-5 (abs and rel) for float32, 2e-2 for bfloat16, as tests/test_kernels.py."""
+    q, k, v = _flash_inputs(b, s, h, d, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window, block_q=blk, block_k=blk)
+    assert flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    want = attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               causal=causal, window=window).transpose(1, 2)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_tile_independence():
+    q, k, v = _flash_inputs(1, 256, 2, 64, torch.float32, seed=1)
+    a = flash_attention(q, k, v, block_q=32, block_k=32)
+    b = flash_attention(q, k, v, block_q=128, block_k=128)
+    torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take():
+    q = torch.zeros(1, 128, 2, 32, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 128, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(q, q, q)
+
+
+def test_bf16_delta_flush_on_device_goes_through_kernel():
+    x = torch.randn(5000, device="cuda").to(torch.bfloat16)
+    arena = NVMArena(block_bytes=64)
+    mgr = EasyCrashManager(arena, FlushPolicy(leaves=("x",), async_flush=False,
+                                              persist_mode="delta"))
+    before = dirty_block_mask.launches
+    for step in range(1, 4):
+        x[step * 999] += 1.0
+        mgr.maybe_flush(step, {"x": x})
+        assert arena.peek("x").tobytes() == x.view(torch.int16).cpu().numpy().tobytes()
+    assert dirty_block_mask.launches == before + 2
+    got, step, _ = mgr.restore({"x": torch.zeros_like(x)})
+    assert step == 3 and got["x"].is_cuda and got["x"].dtype == torch.bfloat16
+    assert torch.equal(got["x"].view(torch.int16), x.view(torch.int16))
+
+
+def test_serve_on_device_uses_the_kernel_and_resumes(tmp_path):
+    from repro_torch.launch import serve
+
+    base = ["--decode-steps", "24", "--flush-every", "8", "--width", "256"]
+    before = flash_attention.launches
+    clean = serve.main(base + ["--workdir", str(tmp_path / "a")])
+    assert flash_attention.launches == before + 2  # one prefill, 2 layers
+    resumed = serve.main(base + ["--workdir", str(tmp_path / "b"), "--inject-failure-at", "16"])
+    assert resumed["resumed"]
+    np.testing.assert_array_equal(resumed["tokens"], clean["tokens"])

@@ -12,7 +12,7 @@ from repro_torch.device import resolve_device
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
-FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax\b|repro(?:\.|\s|$))", re.M)
+FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax\b|ml_dtypes\b|repro(?:\.|\s|$))", re.M)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -62,6 +62,28 @@ def test_port_campaign_leaves_jax_unloaded():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_port_serving_leaves_jax_unloaded(tmp_path):
+    """The decode app and the server, in a fresh interpreter, load neither
+    jax, ml_dtypes nor anything of the JAX package."""
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from repro_torch.hpc.suite import ci_app\n"
+        "from repro_torch.launch import serve\n"
+        "app = ci_app('decode', device='cpu')\n"
+        "s = app.run_iteration(app.init(0))\n"
+        f"serve.main(['--device', 'cpu', '--decode-steps', '8', '--workdir', {str(tmp_path)!r}])\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes', 'repro')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'ml_dtypes.', 'repro.')))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     """Without a CUDA device, an entry point not told device='cpu' raises."""
     from repro_torch.hpc.sor import SORApp
@@ -72,6 +94,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         SORApp(grid=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ci_app("sor")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ci_app("decode")
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--decode-steps", "1"])
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     assert ci_app("sor", device="cpu").device == "cpu"
@@ -87,8 +115,8 @@ def test_resolve_device():
 def test_unported_apps_name_their_roadmap_item():
     from repro_torch.hpc.suite import CI_SIZES, NOT_PORTED, app_names, ci_app
 
-    assert app_names() == ("sor",)
-    assert set(NOT_PORTED) | {"sor"} == set(CI_SIZES)
+    assert app_names() == ("decode", "sor")
+    assert set(NOT_PORTED) | {"decode", "sor"} == set(CI_SIZES)
     for name in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ci_app(name, device="cpu")
