@@ -20,9 +20,11 @@ Phases, in order; any failure ends the run with a nonzero exit:
    flushed again through the kernel against the shadow the restore left;
 5. flash attention: the ``flash_attention`` kernel against its plain
    version on the card over a grid of dtypes, head dims, masks, lengths and
-   tiles, then kernel, plain version and ``F.scaled_dot_product_attention``
-   (the library yardstick, never on the path) timed at the serving path's
-   prefill shape beside the bound;
+   tiles and at both serving paths' prefill shapes (StableLM-2-1.6B's, and
+   RecurrentGemma-9B's D 256 with k and v repeated from one kv head, window
+   2048), then kernel, plain version and ``F.scaled_dot_product_attention``
+   (the library yardstick, never on the path) timed at both shapes beside
+   their bounds;
 6. decode characterization: the decode crash campaign reproduces its pinned
    golden on the card, and ``run_workflow`` gives the JAX package's plan;
 7. serving at full width: StableLM-2-1.6B (24 layers, 1.64 B parameters,
@@ -31,7 +33,20 @@ Phases, in order; any failure ends the run with a nonzero exit:
    prefill in float32 weights), decodes 64 tokens and delta-flushes the KV cache every 16
    steps through ``delta_snapshot``; then a crash at step 32 and a resume
    from the reattached arena, whose token stream must equal the
-   uninterrupted one.
+   uninterrupted one;
+8. the recurrent kernels: ``rwkv6_scan`` and ``rglru_scan`` against their
+   plain versions on the card over dtypes, blocks and head dims, then both
+   timed at the serving paths' shapes beside their bounds;
+9. serving RWKV6-3B at full width and depth (32 layers, random bf16
+   weights): its kernel prefill against the reference prefill in float32
+   weights, then the same flow as phase 7 (4 prompts of 1024 tokens, 64
+   steps, a delta flush every 16, a crash at 32, a resume), with every
+   flushed image equal to the live bytes and the resumed stream equal to
+   the uninterrupted one; the prefill runs ``rwkv6_scan`` once per layer;
+10. serving RecurrentGemma-9B at full width and depth (38 layers, 26 RG-LRU
+   and 12 local-attention layers) the same way, its float32 comparison at
+   a reduced depth of 5 layers; the prefill runs ``rglru_scan`` twice per
+   RG-LRU layer and ``flash_attention`` once per attention layer.
 
 The second line from the end is a JSON object with one entry per kernel,
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -68,6 +83,7 @@ from repro_torch.core import (  # noqa: E402
     WorkflowConfig,
     run_workflow,
 )
+from repro_torch.core.manager import flatten_state  # noqa: E402
 from repro_torch.hpc.common import laplacian_apply  # noqa: E402
 from repro_torch.hpc.sor import SORApp, _rb_sor  # noqa: E402
 from repro_torch.hpc.suite import ci_app, default_cache  # noqa: E402
@@ -76,14 +92,22 @@ from repro_torch.kernels.delta_snapshot import dirty_block_mask  # noqa: E402
 from repro_torch.kernels.delta_snapshot.ref import dirty_block_mask_reference  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_reference  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_reference  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.steps import make_decode_fn  # noqa: E402
 from repro_torch.models import init_cache, init_params, prefill  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.attention import _repeat_kv  # noqa: E402
 
 #: H100 SXM device-memory rate, bytes/s, and dense bf16 tensor-core rate,
 #: FLOP/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989.4e12
+#: H100 SXM float32 rate outside the tensor cores, FLOP/s (an FMA is 2)
+F32_FLOPS_PER_S = 67e12
 #: the deployment's grid: u is 8192^2 float32 = 256 MiB
 DEPLOY_GRID = 8192
 DEPLOY_ITERS = 16
@@ -100,8 +124,19 @@ SERVE_ARCH = "stablelm-1.6b"
 SERVE_PROMPTS, SERVE_PROMPT_LEN, SERVE_STEPS, SERVE_FLUSH_EVERY = 4, 1024, 64, 16
 SERVE_CRASH_AT = 32
 SERVE_WORKDIR = os.path.join(ROOT, "build", "chip_smoke_serve")
-#: the prefill's attention shape (B, S, H, D) at full width
+#: the prefills' attention shapes (B, S, H, D) at full width, with their kv
+#: heads (repeated to H before the kernel) and window: StableLM-2-1.6B's,
+#: and RecurrentGemma-9B's local attention (16 q heads over 1 kv head)
 ATTN_SHAPE = (SERVE_PROMPTS, SERVE_PROMPT_LEN, 32, 64)
+RG_ATTN_SHAPE = (SERVE_PROMPTS, SERVE_PROMPT_LEN, 16, 256)
+ATTN_PATHS = {"serve_stablelm": (ATTN_SHAPE, 32, None),
+              "serve_recurrentgemma": (RG_ATTN_SHAPE, 1, 2048)}
+#: the recurrent serving paths, same prompts, steps and flushes
+RWKV_ARCH, RG_ARCH = "rwkv6-3b", "recurrentgemma-9b"
+#: rwkv6_scan's shape on RWKV6-3B's prefill (B, S, H, D); rglru_scan's on
+#: RecurrentGemma-9B's (B, T, d_rnn)
+RWKV_SHAPE = (SERVE_PROMPTS, SERVE_PROMPT_LEN, 40, 64)
+RGLRU_SHAPE = (SERVE_PROMPTS, SERVE_PROMPT_LEN, 4096)
 
 
 def log(msg: str) -> None:
@@ -145,7 +180,7 @@ def phase_environment() -> str:
     log(f"[env] torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    paths = _build.build("delta_snapshot", "flash_attention")
+    paths = _build.build("delta_snapshot", "flash_attention", "rwkv6_scan", "rglru_scan")
     log(f"[env] built {', '.join(os.path.relpath(str(p), ROOT) for p in paths.values())} "
         f"in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.BUILD_LOGS.items():
@@ -391,7 +426,7 @@ def phase_deploy(dev: str, plan: PersistPlan) -> dict:
 
 # --------------------------------------------------------- 5. flash attention
 def _flash_cases():
-    """(label, shape (B,S,H,D), dtype, causal, window, block)."""
+    """(label, shape (B,S,H,D), dtype, causal, window, block, kv heads)."""
     for dtype in (torch.float32, torch.bfloat16):
         for d in (64, 128, 256):
             for causal, window in ((True, None), (False, None), (True, 64), (True, 128),
@@ -399,30 +434,72 @@ def _flash_cases():
                 for s in (128, 256, 512):
                     for blk in (64, 128):
                         yield (f"{dtype} D={d} S={s} blk={blk} causal={causal} window={window}",
-                               (1, s, 2, d), dtype, causal, window, blk)
-        yield f"{dtype} ragged S=100", (2, 100, 3, 64), dtype, True, None, 128
-    yield "path shape", ATTN_SHAPE, torch.bfloat16, True, None, 128
+                               (1, s, 2, d), dtype, causal, window, blk, 2)
+        yield f"{dtype} ragged S=100", (2, 100, 3, 64), dtype, True, None, 128, 3
+    for path, (shape, hkv, window) in ATTN_PATHS.items():
+        yield f"{path} shape", shape, torch.bfloat16, True, window, 128, hkv
 
 
-def attn_bound_ms(b: int, s: int, h: int, d: int) -> tuple:
+def _attn_inputs(gen, shape, hkv: int, dtype):
+    """q (B,S,H,D); k and v drawn with ``hkv`` heads and repeated to H as
+    attention_full repeats them before the kernel."""
+    b, s, h, d = shape
+    q = torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+    k, v = (_repeat_kv(torch.randn((b, s, hkv, d), generator=gen, device=gen.device).to(dtype),
+                       h // hkv) for _ in range(2))
+    return q, k, v
+
+
+def attn_bound_ms(b: int, s: int, h: int, d: int, window=None) -> tuple:
     """Least time for causal attention: max of the FLOPs (two products over
-    the causal half, 4 B H D S(S+1)/2) at the bf16 tensor-core rate and the
-    bytes (q, k, v read once, out written once, 2 bytes each) at the
+    the (query, key) pairs the causal window keeps, 4 B H D per pair) at the
+    bf16 tensor-core rate and the bytes (q, k, v as the kernel takes them,
+    repeated to H heads, read once, out written once, 2 bytes each) at the
     device-memory rate."""
-    flops = 4 * b * h * d * s * (s + 1) / 2
+    w = s if window is None else min(window, s)
+    pairs = w * (w + 1) / 2 + (s - w) * w
+    flops = 4 * b * h * d * pairs
     nbytes = 4 * b * s * h * d * 2
     t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
+def _time_flash(gen, path: str) -> dict:
+    """Kernel, plain version and SDPA at one path's prefill shape."""
+    shape, hkv, window = ATTN_PATHS[path]
+    bsz, s, h, d = shape
+    q, k, v = _attn_inputs(gen, shape, hkv, torch.bfloat16)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
+    plain_ms = cuda_ms(lambda: attention_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                                   v.transpose(1, 2), causal=True,
+                                                   window=window))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if window is not None and window < s:
+        i = torch.arange(s, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None))
+    bound, bound_by = attn_bound_ms(bsz, s, h, d, window)
+    log(f"[flash] flash_attention at the {path} shape B={bsz} S={s} H={h} (kv {hkv}) D={d} "
+        f"bf16 causal window={window}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; {bound / ms:.1%} of the bound)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "kv_heads": hkv, "window": window, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+            "bound_by": bound_by}
+
+
 def phase_flash(dev: str) -> dict:
     """Kernel against plain version: 2e-5 (abs and rel) in float32, 2e-2 in
     bfloat16 (tests/test_kernels.py's tolerances); tile independence to
-    1e-5; then the path's shape timed."""
+    1e-5; then both paths' shapes timed.  The StableLM shape's numbers are
+    the kernel's headline ones, as in earlier runs."""
     gen = torch.Generator(device=dev).manual_seed(3)
     max_err, n = 0.0, 0
-    for label, shape, dtype, causal, window, blk in _flash_cases():
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+    for label, shape, dtype, causal, window, blk, hkv in _flash_cases():
+        q, k, v = _attn_inputs(gen, shape, hkv, dtype)
         got = flash_attention(q, k, v, causal=causal, window=window, block_q=blk, block_k=blk)
         torch.cuda.synchronize()
         want = attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -442,22 +519,10 @@ def phase_flash(dev: str) -> dict:
     log(f"[flash] flash_attention within tolerance of its plain version in {n} cases "
         f"(max |diff| {max_err:.3e}); kv tiles 32 vs 64 differ by {tile_err:.3e}")
 
-    bsz, s, h, d = ATTN_SHAPE
-    q, k, v = (torch.randn(ATTN_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
-               for _ in range(3))
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-    plain_ms = cuda_ms(lambda: attention_reference(q.transpose(1, 2), k.transpose(1, 2),
-                                                   v.transpose(1, 2), causal=True))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    bound, bound_by = attn_bound_ms(bsz, s, h, d)
-    log(f"[flash] flash_attention at B={bsz} S={s} H={h} D={d} bf16 causal: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
-        f"{bound / ms:.1%} of the bound)")
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
-            "bound_by": bound_by, "max_abs_err": max_err}
+    by_path = {path: _time_flash(gen, path) for path in ATTN_PATHS}
+    head = by_path["serve_stablelm"]
+    return {**{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "max_abs_err": max_err, "by_path": by_path}
 
 
 # ----------------------------------------------------- 6. decode characterize
@@ -486,9 +551,9 @@ def phase_decode_characterize(dev: str) -> None:
 
 
 # ------------------------------------------------------------------- 7. serve
-def _serve_args(workdir: str, inject: int = 0) -> argparse.Namespace:
+def _serve_args(workdir: str, inject: int = 0, arch: str = SERVE_ARCH) -> argparse.Namespace:
     return serve.parser().parse_args([
-        "--arch", SERVE_ARCH, "--full-size", "--prompts", str(SERVE_PROMPTS),
+        "--arch", arch, "--full-size", "--prompts", str(SERVE_PROMPTS),
         "--prompt-len", str(SERVE_PROMPT_LEN), "--decode-steps", str(SERVE_STEPS),
         "--flush-every", str(SERVE_FLUSH_EVERY), "--workdir", workdir,
         "--inject-failure-at", str(inject),
@@ -496,11 +561,9 @@ def _serve_args(workdir: str, inject: int = 0) -> argparse.Namespace:
 
 
 def _check_images(step: int, state: dict, arena: NVMArena) -> None:
-    """Every flushed image equals the live bytes."""
-    flat = {"tokens": state["tokens"], "cache/t": state["cache"]["t"]}
-    for kv in ("k", "v"):
-        flat[f"cache/group0/pos0/{kv}"] = state["cache"]["group0"]["pos0"][kv]
-    for name, live in flat.items():
+    """Every flushed image (each leaf of the cache, and the tokens) equals
+    the live bytes."""
+    for name, live in flatten_state(state).items():
         img = arena.peek(name)
         if img is None or img.tobytes() != host_array(live).tobytes():
             raise AssertionError(f"step {step}: arena image of {name!r} != live bytes")
@@ -577,12 +640,7 @@ def phase_serve(dev: str) -> dict:
     if flash_launches != 2 * cfg.n_layers:
         raise AssertionError(f"flash_attention launched {flash_launches} times, "
                              f"expected {2 * cfg.n_layers}")
-    # one per tensor leaf (t, k, v, tokens) and delta flush: 3 in the clean run, 1
-    # before the crash (the first flush writes everything) and 2 after the resume
-    want_delta = 4 * (3 + 1 + 2)
-    if delta_launches != want_delta:
-        raise AssertionError(f"delta_snapshot launched {delta_launches} times, "
-                             f"expected {want_delta}")
+    _check_delta_launches("serve", cfg, delta_launches)
     row = cfg.n_kv_heads * cfg.head_dim * 2  # one token's K (or V) in one layer, bf16
     kv_bytes = 2 * SERVE_FLUSH_EVERY * cfg.n_layers * SERVE_PROMPTS * row
     later = clean["flush_bytes"][1:] + resumed["flush_bytes"]
@@ -618,7 +676,7 @@ def phase_serve(dev: str) -> dict:
     return out
 
 
-def _profile_decode(cfg, params, prompts, dev: str, steps: int = 8) -> dict:
+def _profile_decode(cfg, params, prompts, dev: str, steps: int = 8, name: str = "serve") -> dict:
     """Device time of ``steps`` decode steps from torch.profiler (CUDA
     kernels' self time) against their host-clock wall time: the device's
     idle share, and the kernels that take the most device time."""
@@ -653,13 +711,348 @@ def _profile_decode(cfg, params, prompts, dev: str, steps: int = 8) -> dict:
            "idle_share": (1 - device_ms / wall_ms) if device_ms else None,
            "top": [(name[:60], round(ms, 3), n) for ms, name, n in rows[:6]]}
     if device_ms:
-        log(f"[serve] profile of {steps} decode steps: wall {wall_ms:.1f} ms, device "
+        log(f"[{name}] profile of {steps} decode steps: wall {wall_ms:.1f} ms, device "
             f"{device_ms:.1f} ms, idle share {out['idle_share']:.1%}; top kernels (ms, "
             f"launches): {out['top']}")
     else:
-        log("[serve] profile of decode steps: the profiler reported no device time "
+        log(f"[{name}] profile of decode steps: the profiler reported no device time "
             "(idle share not measured)")
     return out
+
+
+# ------------------------------------------------------- 8. recurrent kernels
+def _check_close(label: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    err = float((got.float() - want.float()).abs().max())
+    if got.shape != want.shape or got.dtype != torch.float32:
+        raise AssertionError(f"{label}: kernel gave {tuple(got.shape)}/{got.dtype}, "
+                             f"plain {tuple(want.shape)}/{want.dtype}")
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{label}: max |kernel - plain| {err:.3e} over the tolerance {tol}")
+    return err
+
+
+def _rwkv_inputs(gen, shape, dtype, model_decay=False):
+    """r, k, v (normals times 0.5), w and u (H, D) as tests/test_kernels.py
+    draws them; with ``model_decay`` w is RWKV6-3B's own decay,
+    exp(-exp(-6 + 0.3 n)), about 0.9975 a step."""
+    b, s, h, d = shape
+    r, k, v = (torch.randn(shape, generator=gen, device=gen.device) * 0.5 for _ in range(3))
+    n = torch.randn(shape, generator=gen, device=gen.device)
+    w = torch.exp(-torch.exp(-6.0 + 0.3 * n)) if model_decay else torch.sigmoid(n)
+    u = torch.randn((h, d), generator=gen, device=gen.device) * 0.3
+    return [x.to(dtype) for x in (r, k, v, w)] + [u]
+
+
+def _rwkv_plain(r, k, v, w, u):
+    return rwkv6_reference(*(x.transpose(1, 2) for x in (r, k, v, w)), u).transpose(1, 2)
+
+
+def rwkv_bound_ms(b: int, s: int, h: int, d: int) -> tuple:
+    """Least time for the scan: max of the bytes (r, k, v, w f32 read once,
+    y f32 written once) at the device-memory rate and the function's f32
+    work at the f32 CUDA-core rate.  The work per token and head: r.S and
+    S <- w*S + k'v, 5 FLOP per state element; the bonus r.(u*k'v) is
+    v_j * sum_i r_i u_i k_i, 5 FLOP per channel."""
+    nbytes = 5 * b * s * h * d * 4 + h * d * 4
+    flops = 5 * b * s * h * d * (d + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def phase_rwkv_kernel(dev: str) -> dict:
+    """Kernel against plain version to 1e-4 (abs and rel; both upcast to f32
+    and differ in the order of sums) over f32 and bf16 inputs, D 16, 32, 64
+    and block_t 32, 64, 256; the result independent of block_t; the path's
+    shape with the model's decay; then the path's shape timed."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    max_err, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (16, 32, 64):
+            for bt in (32, 64, 256):
+                shape = (2, 256, 3, d)
+                r, k, v, w, u = _rwkv_inputs(gen, shape, dtype)
+                got = rwkv6_scan(r, k, v, w, u, block_t=bt)
+                torch.cuda.synchronize()
+                err = _check_close(f"rwkv6_scan {dtype} D={d} block_t={bt}", got,
+                                   _rwkv_plain(r, k, v, w, u), 1e-4)
+                max_err, n = max(max_err, err), n + 1
+    r, k, v, w, u = _rwkv_inputs(gen, RWKV_SHAPE, torch.float32, model_decay=True)
+    got = rwkv6_scan(r, k, v, w, u)
+    torch.cuda.synchronize()
+    max_err = max(max_err, _check_close("rwkv6_scan path shape", got,
+                                        _rwkv_plain(r, k, v, w, u), 1e-4))
+    if not torch.equal(got, rwkv6_scan(r, k, v, w, u, block_t=32)):
+        raise AssertionError("rwkv6_scan: block_t 32 and 256 differ")
+    log(f"[rwkv6] rwkv6_scan within 1e-4 of its plain version in {n + 1} cases "
+        f"(max |diff| {max_err:.3e}); block_t 32 and 256 equal")
+
+    ms = cuda_ms(lambda: rwkv6_scan(r, k, v, w, u))
+    plain_ms = cuda_ms(lambda: _rwkv_plain(r, k, v, w, u), reps=5, warmup=1)
+    bound, bound_by = rwkv_bound_ms(*RWKV_SHAPE)
+    log(f"[rwkv6] rwkv6_scan at (B, S, H, D) = {RWKV_SHAPE} f32: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; {bound / ms:.1%} of the bound)")
+    del r, k, v, w, u, got
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "max_abs_err": max_err}
+
+
+def rglru_bound_ms(b: int, t: int, d: int) -> float:
+    """Least time for the scan: a and b f32 read once, h f32 written once,
+    at the device-memory rate (one multiply and one add per element is far
+    under the f32 rate)."""
+    return 3 * b * t * d * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def phase_rglru_kernel(dev: str) -> dict:
+    """Kernel against plain version to 1e-4 (abs and rel) over f32 and bf16
+    inputs, block_d 64 and 128, block_t 64 and 256 and the path's shape; both
+    round the product and the add one at a time, so they are expected to
+    agree bit for bit (printed).  Then the path's shape timed."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    max_err, n, exact = 0.0, 0, True
+    cases = [(dtype, (2, 256, 256), bt, bd) for dtype in (torch.float32, torch.bfloat16)
+             for bt in (64, 256) for bd in (64, 128)]
+    cases += [(torch.float32, (3, 64, 192), 64, 64), (torch.float32, RGLRU_SHAPE, 256, 128)]
+    for dtype, shape, bt, bd in cases:
+        a = (torch.sigmoid(torch.randn(shape, generator=gen, device=dev)) * 0.98).to(dtype)
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        got = rglru_scan(a, x, block_t=bt, block_d=bd)
+        torch.cuda.synchronize()
+        want = rglru_reference(a, x)
+        err = _check_close(f"rglru_scan {dtype} {shape} block_t={bt} block_d={bd}", got, want,
+                           1e-4)
+        exact = exact and torch.equal(got, want)
+        max_err, n = max(max_err, err), n + 1
+    log(f"[rglru] rglru_scan within 1e-4 of its plain version in {n} cases "
+        f"(max |diff| {max_err:.3e}; bit for bit: {exact})")
+    ms = cuda_ms(lambda: rglru_scan(a, x))
+    plain_ms = cuda_ms(lambda: rglru_reference(a, x), reps=5, warmup=1)
+    bound = rglru_bound_ms(*RGLRU_SHAPE)
+    log(f"[rglru] rglru_scan at (B, T, D) = {RGLRU_SHAPE} f32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes; {bound / ms:.1%} of the bound)")
+    del a, x, got, want
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "max_abs_err": max_err, "exact": exact}
+
+
+# --------------------------------------------- 9, 10. serving recurrent models
+def _compare_prefills(name: str, cfg, params, prompts) -> None:
+    """The kernel prefill against the reference prefill in float32 weights:
+    the two differ in the order of f32 sums only; held to 2e-2 (abs and
+    rel), as the StableLM comparison."""
+    c = dataclasses.replace(cfg, dtype="float32")
+    p = _tree_map(params, lambda x: x.float())
+    lk, _ = prefill(c, p, prompts, impl="kernel")
+    lr, _ = prefill(c, p, prompts, impl="reference")
+    torch.cuda.synchronize()
+    err = float((lk - lr).abs().max())
+    same = torch.equal(lk.argmax(-1), lr.argmax(-1))
+    log(f"[{name}] float32 weights, {c.n_layers} layers: kernel vs reference prefill logits "
+        f"{tuple(lk.shape)}: max |diff| {err:.3e} (|logit| up to {float(lr.abs().max()):.2f}); "
+        f"greedy tokens equal: {same}")
+    if not torch.allclose(lk, lr, atol=2e-2, rtol=2e-2):
+        raise AssertionError(f"{name}: float32 kernel prefill logits differ from the "
+                             f"reference's beyond 2e-2")
+    del p, lk, lr
+    torch.cuda.empty_cache()
+
+
+def _prefill_breakdown(name: str, cfg, params, prompts) -> dict:
+    """One bf16 kernel prefill with the recurrent-state recompute
+    (_rwkv_state_after / _rec_state_after) timed apart, each call
+    synchronized on both sides."""
+    spent = {"state_after_ms": 0.0}
+    originals = {k: getattr(transformer, k) for k in ("_rwkv_state_after", "_rec_state_after")}
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent["state_after_ms"] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    try:
+        for k, fn in originals.items():
+            setattr(transformer, k, timed(fn))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(cfg, params, prompts, impl="kernel")
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for k, fn in originals.items():
+            setattr(transformer, k, fn)
+    out = {"prefill_ms": total, "state_after_ms": spent["state_after_ms"],
+           "rest_ms": total - spent["state_after_ms"]}
+    log(f"[{name}] prefill breakdown: {total:.1f} ms, of it the recurrent-state recompute "
+        f"{out['state_after_ms']:.1f} ms, the rest {out['rest_ms']:.1f} ms")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_and_resume(name: str, arch: str, params, prompts) -> dict:
+    """The uninterrupted run, the crashed run and the resume; every flush
+    checked against the live bytes; the resumed stream against the
+    uninterrupted one."""
+    shutil.rmtree(SERVE_WORKDIR, ignore_errors=True)
+    try:
+        clean = serve.run(_serve_args(os.path.join(SERVE_WORKDIR, "clean"), arch=arch),
+                          params=params, prompts=prompts, on_flush=_check_images)
+        crash_dir = os.path.join(SERVE_WORKDIR, "crash")
+        try:
+            serve.run(_serve_args(crash_dir, SERVE_CRASH_AT, arch=arch), params=params,
+                      prompts=prompts, on_flush=_check_images)
+            raise AssertionError("the injected failure did not fire")
+        except serve.SimulatedFailure as e:
+            log(f"[{name}] {e}; restarting from the arena")
+        resumed = serve.run(_serve_args(crash_dir, arch=arch), params=params, prompts=prompts,
+                            on_flush=_check_images)
+    finally:
+        shutil.rmtree(SERVE_WORKDIR, ignore_errors=True)
+    if not resumed["resumed"] or resumed["decode_steps"] != SERVE_STEPS - SERVE_CRASH_AT:
+        raise AssertionError(f"{name}: the restart did not resume at step {SERVE_CRASH_AT}")
+    if not np.array_equal(resumed["tokens"], clean["tokens"]):
+        diff = np.argwhere(resumed["tokens"] != clean["tokens"])
+        raise AssertionError(f"{name}: the resumed stream differs from the uninterrupted one "
+                             f"at {diff[:4]}")
+    return {"clean": clean, "resumed": resumed}
+
+
+def _serve_summary(name: str, runs: dict, extra: dict) -> dict:
+    clean, resumed = runs["clean"], runs["resumed"]
+    n_flush = len(clean["flush_bytes"])
+    split = {k: v / n_flush for k, v in clean["flush_split_ms"].items()}
+    out = {
+        "prefill_ms": clean["prefill_ms"],
+        "decode_ms_per_step": clean["decode_ms_per_step"],
+        "tokens_per_s": clean["tokens_per_s"],
+        "flush_ms_mean": clean["flush_ms"] / n_flush,
+        "flush_split_ms_mean": split,
+        "flush_bytes": clean["flush_bytes"],
+        "resumed_flush_bytes": resumed["flush_bytes"],
+        **extra,
+    }
+    log(f"[{name}] prefill {out['prefill_ms']:.1f} ms, decode {out['decode_ms_per_step']:.2f} "
+        f"ms/step, flush {out['flush_ms_mean']:.1f} ms mean of {n_flush} (mask "
+        f"{split['mask_seconds']:.1f}, device-to-host {split['copy_seconds']:.1f}, arena "
+        f"{split['arena_seconds']:.1f} ms); bytes per flush {clean['flush_bytes']}, after the "
+        f"resume {resumed['flush_bytes']}")
+    log(f"[{name}] resumed stream equals the uninterrupted one ({resumed['tokens'].shape}); "
+        f"every flushed image equalled the live bytes; {json.dumps(extra)}")
+    return out
+
+
+def _n_tensor_leaves(cfg) -> int:
+    """Tensor leaves the server flushes: t, the tokens, and the two cache
+    leaves of each layer position (k, v; h, conv; S, x_last)."""
+    return 2 + 2 * sum(len(pattern) for pattern, _ in cfg.groups)
+
+
+def _check_delta_launches(name: str, cfg, launches: int) -> None:
+    # one per tensor leaf and delta flush: 3 in the clean run, 1 before the
+    # crash (the first flush writes everything) and 2 after the resume
+    want = _n_tensor_leaves(cfg) * (3 + 1 + 2)
+    if launches != want:
+        raise AssertionError(f"{name}: delta_snapshot launched {launches} times, expected {want}")
+
+
+def phase_serve_rwkv(dev: str) -> dict:
+    cfg = get_arch(RWKV_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(int(x.numel()) for x in _leaves(params))
+    log(f"[rwkv] {RWKV_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} "
+        f"parameters in {cfg.dtype}, init {time.perf_counter() - t0:.1f} s")
+    prompts = serve.make_prompts(cfg, SERVE_PROMPTS, SERVE_PROMPT_LEN, dev)
+    _compare_prefills("rwkv", cfg, params, prompts)
+    breakdown = _prefill_breakdown("rwkv", cfg, params, prompts)
+    profile = _profile_decode(cfg, params, prompts, dev, name="rwkv")
+    torch.cuda.empty_cache()
+
+    rwkv6_scan.launches = 0
+    dirty_block_mask.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    runs = _serve_and_resume("rwkv", RWKV_ARCH, params, prompts)
+    scan_launches, delta_launches = rwkv6_scan.launches, dirty_block_mask.launches
+    peak = torch.cuda.max_memory_allocated()
+    # 2 prefills (the uninterrupted run, the crashed run); the resume has none
+    if scan_launches != 2 * cfg.n_layers:
+        raise AssertionError(f"rwkv6_scan launched {scan_launches} times, "
+                             f"expected {2 * cfg.n_layers} (once per layer and prefill)")
+    _check_delta_launches("rwkv", cfg, delta_launches)
+    H, dh = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    s_bytes = cfg.n_layers * SERVE_PROMPTS * H * dh * dh * 4
+    later = runs["clean"]["flush_bytes"][1:] + runs["resumed"]["flush_bytes"]
+    if not all(b >= s_bytes for b in later):
+        raise AssertionError(f"rwkv: delta flushes wrote {later} bytes, fewer than the "
+                             f"{s_bytes} of the state S that every token rewrites")
+    del params
+    torch.cuda.empty_cache()
+    return _serve_summary("rwkv", runs, {
+        "prefill_breakdown": breakdown, "decode_profile": profile, "state_S_bytes": s_bytes,
+        "state_x_last_bytes": cfg.n_layers * SERVE_PROMPTS * cfg.d_model * 2,
+        "peak_device_bytes": peak, "rwkv6_launches": scan_launches,
+        "delta_launches": delta_launches})
+
+
+def _rg_reduced(cfg, params):
+    """RecurrentGemma cut to one (rec, rec, attn) repeat and the (rec, rec)
+    tail: 5 layers at full width, the weights the first layers' own."""
+    c = dataclasses.replace(cfg, n_layers=5, layer_groups=((("rec", "rec", "attn"), 1),
+                                                            (("rec", "rec"), 1)))
+    p = dict(params)
+    p["group0"] = _tree_map(params["group0"], lambda x: x[:1])
+    return c, p
+
+
+def phase_serve_rg(dev: str) -> dict:
+    cfg = get_arch(RG_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(int(x.numel()) for x in _leaves(params))
+    log(f"[rg] {RG_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} "
+        f"parameters in {cfg.dtype}, init {time.perf_counter() - t0:.1f} s")
+    prompts = serve.make_prompts(cfg, SERVE_PROMPTS, SERVE_PROMPT_LEN, dev)
+    _compare_prefills("rg", *_rg_reduced(cfg, params), prompts)
+    breakdown = _prefill_breakdown("rg", cfg, params, prompts)
+    profile = _profile_decode(cfg, params, prompts, dev, name="rg")
+    torch.cuda.empty_cache()
+
+    n_rec = sum(pattern.count("rec") * rep for pattern, rep in cfg.groups)
+    n_attn = sum(pattern.count("attn") * rep for pattern, rep in cfg.groups)
+    rglru_scan.launches = 0
+    flash_attention.launches = 0
+    dirty_block_mask.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    runs = _serve_and_resume("rg", RG_ARCH, params, prompts)
+    scan_launches, flash_launches = rglru_scan.launches, flash_attention.launches
+    delta_launches = dirty_block_mask.launches
+    peak = torch.cuda.max_memory_allocated()
+    # per prefill: each RG-LRU layer scans in rglru_full and in _rec_state_after
+    if scan_launches != 2 * 2 * n_rec:
+        raise AssertionError(f"rglru_scan launched {scan_launches} times, expected "
+                             f"{4 * n_rec} (twice per RG-LRU layer and prefill)")
+    if flash_launches != 2 * n_attn:
+        raise AssertionError(f"flash_attention launched {flash_launches} times, expected "
+                             f"{2 * n_attn} (once per attention layer and prefill)")
+    _check_delta_launches("rg", cfg, delta_launches)
+    del params
+    torch.cuda.empty_cache()
+    return _serve_summary("rg", runs, {
+        "prefill_breakdown": breakdown, "decode_profile": profile,
+        "state_h_bytes": n_rec * SERVE_PROMPTS * cfg.rec.d_rnn * 4,
+        "state_conv_bytes": n_rec * SERVE_PROMPTS * (cfg.rec.conv_width - 1) * cfg.rec.d_rnn * 2,
+        "kv_cache_bytes_per_leaf": n_attn * SERVE_PROMPTS * (SERVE_PROMPT_LEN + SERVE_STEPS + 1)
+        * cfg.n_kv_heads * cfg.head_dim * 2,
+        "peak_device_bytes": peak, "rglru_launches": scan_launches,
+        "flash_launches": flash_launches, "delta_launches": delta_launches})
 
 
 def _tree_map(tree, fn):
@@ -697,6 +1090,14 @@ def main() -> int:
     phase_decode_characterize(dev)
     served = phase_serve(dev)
     log(f"[serve] summary {json.dumps(served)}")
+    torch.cuda.empty_cache()
+
+    rwkv_k = phase_rwkv_kernel(dev)
+    rglru_k = phase_rglru_kernel(dev)
+    rwkv = phase_serve_rwkv(dev)
+    log(f"[rwkv] summary {json.dumps(rwkv)}")
+    rg = phase_serve_rg(dev)
+    log(f"[rg] summary {json.dumps(rg)}")
 
     log(gpu)
     print(json.dumps({"kernels": [{
@@ -704,8 +1105,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/delta_snapshot.cu",
         "replaces": "src/repro/kernels/delta_snapshot/kernel.py:26",
-        "launches": launches + served["delta_launches"],
-        "launches_by_path": {"sor_deploy": launches, "serve": served["delta_launches"]},
+        "launches": launches + served["delta_launches"] + rwkv["delta_launches"]
+        + rg["delta_launches"],
+        "launches_by_path": {"sor_deploy": launches, "serve_stablelm": served["delta_launches"],
+                             "serve_rwkv6": rwkv["delta_launches"],
+                             "serve_recurrentgemma": rg["delta_launches"]},
         "max_abs_err": max_err,
         "exact": max_err == 0,
         "ms": kern["ms"],
@@ -718,13 +1122,42 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
-        "launches": served["flash_launches"],
+        "launches": served["flash_launches"] + rg["flash_launches"],
+        "launches_by_path": {"serve_stablelm": served["flash_launches"],
+                             "serve_recurrentgemma": rg["flash_launches"]},
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
+        "by_path": flash["by_path"],
+    }, {
+        "name": "rwkv6_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:28",
+        "launches": rwkv["rwkv6_launches"],
+        "launches_by_path": {"serve_rwkv6": rwkv["rwkv6_launches"]},
+        "max_abs_err": rwkv_k["max_abs_err"],
+        "ms": rwkv_k["ms"],
+        "plain_ms": rwkv_k["plain_ms"],
+        "bound_ms": rwkv_k["bound_ms"],
+        "bound_by": rwkv_k["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "rglru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:22",
+        "launches": rg["rglru_launches"],
+        "launches_by_path": {"serve_recurrentgemma": rg["rglru_launches"]},
+        "max_abs_err": rglru_k["max_abs_err"],
+        "ms": rglru_k["ms"],
+        "plain_ms": rglru_k["plain_ms"],
+        "bound_ms": rglru_k["bound_ms"],
+        "bound_by": rglru_k["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

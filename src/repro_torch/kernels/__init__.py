@@ -7,4 +7,6 @@ launches) and ``ref.py`` (the plain PyTorch version).  CUDA sources live in
 
   delta_snapshot   — dirty-block detection for EasyCrash delta flushes
   flash_attention  — blockwise online-softmax attention (prefill)
+  rwkv6_scan       — RWKV-6 matrix-state scan (RWKV prefill)
+  rglru_scan       — RG-LRU diagonal recurrence (RecurrentGemma prefill)
 """

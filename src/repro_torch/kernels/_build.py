@@ -36,6 +36,19 @@ SIGNATURES: Dict[str, Tuple[str, tuple, type]] = {
          ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p),
         ctypes.c_int,
     ),
+    "rwkv6_scan": (
+        "rwkv6_scan_fwd",
+        (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p),
+        ctypes.c_int,
+    ),
+    "rglru_scan": (
+        "rglru_scan_fwd",
+        (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
+        ctypes.c_int,
+    ),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

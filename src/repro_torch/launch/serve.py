@@ -1,7 +1,10 @@
 # Port of repro/launch/serve.py.  What differs:
 # * --device (default cuda; raises without CUDA unless --device cpu).  On a
-#   CUDA device the prefill runs the flash-attention kernel (impl="kernel");
-#   on the CPU its plain version (impl="reference").
+#   CUDA device the prefill runs the kernels (impl="kernel": flash
+#   attention, rwkv6_scan, rglru_scan); on the CPU the reference path.
+# * _splice_cache copies into the decode cache's own tensors (K/V prefixes,
+#   and the recurrent state leaves whole), so the cache the manager flushes
+#   is the one init_cache made.
 # * Weights come from a torch.Generator seeded with --seed, the prompts from
 #   one seeded with 7 (JAX's PRNGKey(seed) and PRNGKey(7) give other
 #   numbers); run() also takes the weights and prompts from its caller.
@@ -29,6 +32,7 @@ continues.
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --prompts 4 --decode-steps 64 --inject-failure-at 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --device cpu
 """
 from __future__ import annotations
 
@@ -171,16 +175,19 @@ def run(args, params: Optional[Dict[str, Any]] = None, prompts: Optional[torch.T
 
 def _splice_cache(cfg, full_cache: Dict[str, Any], prefill_cache: Dict[str, Any],
                   prompt_len: int) -> Dict[str, Any]:
-    """Install prefill K/V into the right-sized decode cache (in place)."""
+    """Install the prefill's cache into the right-sized decode cache, in
+    place: K/V caches (L, B, S, H, D) take the prefix along S; a leaf of
+    the decode cache's own shape (the recurrent states S, x_last, h, conv,
+    and a windowed K/V cache the prompt filled) is copied whole."""
     def splice(dst, src):
         if isinstance(dst, dict):
             return {k: splice(dst[k], src[k]) for k in dst}
-        if dst.dim() >= 3 and src.dim() == dst.dim() and dst.shape != src.shape:
-            # KV caches: (L, B, S, H, D): copy the prefix
+        if dst.shape == src.shape:
+            return dst.copy_(src)
+        if dst.dim() >= 3 and src.dim() == dst.dim():
             n = min(src.shape[2], dst.shape[2])
             dst[:, :, :n] = src[:, :, :n]
-            return dst
-        return src.to(dst.dtype) if src.shape == dst.shape else dst
+        return dst
 
     out = splice({k: v for k, v in full_cache.items() if k != "t"},
                  {k: v for k, v in prefill_cache.items() if k != "t"})

@@ -12,6 +12,8 @@
 # * The scaled scores are f32 products of the rounded einsum and the scale
 #   rounded to the model's dtype (_scaled), as XLA compiles JAX's
 #   bfloat16 `einsum * scale` followed by a cast to f32.
+# * init_kv_cache takes a device ("cuda" by default, resolved by
+#   device.resolve_device).
 # * with_logical is gone (a no-op on one card); attn_specs and
 #   kv_cache_specs are left out (sharding only).
 """GQA attention: train/prefill (full-sequence) and decode (KV cache) paths.
@@ -26,8 +28,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..device import resolve_device
 from .config import ModelConfig
-from .layers import apply_rope, dtype_of, einsum, matmul, normal_init, rope_angles
+from .layers import _in_dtype, apply_rope, dtype_of, einsum, matmul, normal_init, rope_angles
 
 NEG_INF = -1e30
 
@@ -75,8 +78,7 @@ def _scaled(scores: torch.Tensor, d_head: int) -> torch.Tensor:
     ``(einsum(...) * scale).astype(f32)``: the Python scale takes the scores'
     dtype, and the product keeps f32 (excess precision skips its rounding
     to the scores' dtype)."""
-    scale = float(torch.tensor(d_head ** -0.5, dtype=scores.dtype))
-    return scores.float() * scale
+    return scores.float() * _in_dtype(d_head ** -0.5, scores.dtype)
 
 
 def _softmax(x: torch.Tensor) -> torch.Tensor:
@@ -125,7 +127,8 @@ def attention_full(
 
 
 def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
-                  window: Optional[int] = None, device="cpu") -> Dict:
+                  window: Optional[int] = None, device="cuda") -> Dict:
+    device = resolve_device(device)
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
     length = min(max_len, window) if window else max_len
     dt = dtype_of(cfg)

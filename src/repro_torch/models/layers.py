@@ -6,7 +6,9 @@
 # * activation_fn("silu") is written op by op, h * (1 / (1 + exp(-h))): XLA
 #   lowers a bfloat16 logistic that way and rounds to bfloat16 after every
 #   op, and F.silu, which rounds once, differs from it in about a third of
-#   the elements of a bfloat16 MLP.
+#   the elements of a bfloat16 MLP.  activation_fn("gelu") likewise writes
+#   jax.nn.gelu's tanh form op by op with its constants in the input's
+#   dtype (F.gelu rounds once and keeps its constants in f32).
 # * A bfloat16 product on the CPU runs as an f32 product of the upcast
 #   operands, rounded once (matmul, einsum): that is how XLA's CPU backend
 #   computes it, and torch's own bfloat16 CPU kernels sum in another order.
@@ -19,6 +21,7 @@
 """Shared layers: norms, rotary embedding, MLPs, initializers."""
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -71,11 +74,25 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """A Python constant rounded to ``dtype``, as JAX casts it to the array's."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default, the tanh form, one rounding per op as XLA
+    # computes it, with the constants rounded to x's dtype
+    c = _in_dtype((2 / math.pi) ** 0.5, x.dtype)
+    k = _in_dtype(0.044715, x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    return x * cdf
+
+
 def activation_fn(name: str):
     if name == "silu":
         return _silu
-    if name == "gelu":  # jax.nn.gelu's default, the tanh form
-        return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
+    if name == "gelu":
+        return _gelu
     if name == "relu2":  # Nemotron-4 squared ReLU
         return lambda x: torch.square(torch.relu(x))
     raise ValueError(f"unknown activation {name}")

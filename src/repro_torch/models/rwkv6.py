@@ -1,0 +1,162 @@
+# Port of repro/models/rwkv6.py.  What differs:
+# * impl="kernel" is the counterpart of JAX's impl="pallas": the scan goes
+#   to the hand-written CUDA kernel (kernels/rwkv6_scan; its plain version
+#   on a CPU tensor).  impl="chunked" (_rwkv_chunked, rwkv_chunked_bhtd) is
+#   not ported yet and raises (ROADMAP, module item 7).
+# * impl="reference" runs the kernel's plain version (the JAX step loop as
+#   a loop over the tokens, kernels/rwkv6_scan/ref.py) where JAX runs its
+#   own lax.scan of the same steps.
+# * rwkv_params draws from a torch.Generator (other numbers than JAX's
+#   keys; tests convert JAX's weights with convert.params_from_jax);
+#   rwkv_init_state takes a device.
+# * rwkv_decode_step returns new tensors, as JAX does; the transformer's
+#   decode_step copies them into the cache in place.
+# * with_logical is gone (a no-op on one card); rwkv_specs and
+#   rwkv_state_specs are left out (sharding only).
+"""RWKV-6 "Finch" time-mix block (arXiv:2404.05892), attention-free.
+
+State: one matrix S in R^{dh x dh} per head.  Recurrence per token t:
+
+    S_t = diag(w_t) . S_{t-1} + k_t^T v_t            (data-dependent decay)
+    y_t = r_t . (diag(u) . k_t^T v_t + S_{t-1})
+
+with w_t = exp(-exp(decay_t)) computed from the token (the "dynamic decay"
+that distinguishes v6 from v5).  ``repro_torch.kernels.rwkv6_scan`` holds
+the kernel and its step-by-step plain version.
+
+Token-shift mixing (lerp between x_t and x_{t-1}) follows the RWKV design;
+the low-rank "data-dependent lerp" (ddlerp) uses a single small MLP per
+projection for clarity.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from .config import ModelConfig
+from .layers import activation_fn, dtype_of, matmul, normal_init, rms_norm
+
+
+def _n_heads(cfg: ModelConfig) -> int:
+    return cfg.d_model // cfg.rwkv.head_dim
+
+
+def rwkv_params(cfg: ModelConfig, gen: torch.Generator, n: int) -> Dict:
+    d = cfg.d_model
+    dh = cfg.rwkv.head_dim
+    H = _n_heads(cfg)
+    dt = dtype_of(cfg)
+    s = d ** -0.5
+    lora = max(32, d // 32)
+    f32 = torch.float32
+    return {
+        "mix_lerp": torch.zeros((n, 5, d), dtype=dt, device=gen.device),  # r,k,v,w,g lerps
+        "w_r": normal_init(gen, (n, d, d), s, dt),
+        "w_k": normal_init(gen, (n, d, d), s, dt),
+        "w_v": normal_init(gen, (n, d, d), s, dt),
+        "w_g": normal_init(gen, (n, d, d), s, dt),
+        "w_o": normal_init(gen, (n, d, d), s, dt),
+        # dynamic decay: d -> lora -> d
+        "wd_a": normal_init(gen, (n, d, lora), s, dt),
+        "wd_b": normal_init(gen, (n, lora, d), lora ** -0.5, dt),
+        "decay_base": torch.full((n, d), -6.0, dtype=f32, device=gen.device)
+        + normal_init(gen, (n, d), 0.3, f32),
+        "bonus_u": normal_init(gen, (n, H, dh), 0.3, f32),
+        "ln_x": torch.zeros((n, d), dtype=dt, device=gen.device),  # per-head group-norm gain
+    }
+
+
+def _projections(p: Dict, x: torch.Tensor, x_prev: torch.Tensor, cfg: ModelConfig):
+    """Token-shift lerped projections.  x: (B, S, d); x_prev: (B, S, d) is x
+    shifted right by one token (decode passes the cached last token)."""
+    lerp = p["mix_lerp"]  # (5, d)
+
+    def mix(i):
+        return x + (x_prev - x) * lerp[i][None, None, :]
+
+    r = matmul(mix(0), p["w_r"])
+    k = matmul(mix(1), p["w_k"])
+    v = matmul(mix(2), p["w_v"])
+    dec_in = mix(3)
+    g = matmul(mix(4), p["w_g"])
+    # dynamic decay (f32 for stability): w = exp(-exp(base + lora(x)))
+    dd = matmul(dec_in, p["wd_a"])
+    dd = matmul(torch.tanh(dd), p["wd_b"])
+    logdecay = p["decay_base"][None, None, :] + dd.float()
+    w = torch.exp(-torch.exp(logdecay))  # in (0, 1)
+    return r, k, v, w, g
+
+
+def _head_split(x: torch.Tensor, H: int, dh: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, H, dh)
+
+
+def _shift_right(x: torch.Tensor) -> torch.Tensor:
+    """x shifted one token later along the sequence, a zero row first
+    (jnp.pad(x, ((0, 0), (1, 0), (0, 0)))[:, :-1])."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def rwkv_scan_full(
+    p: Dict, x: torch.Tensor, cfg: ModelConfig, impl: str = "reference",
+) -> torch.Tensor:
+    """Full-sequence RWKV-6.  x: (B, S, d) -> (B, S, d)."""
+    H, dh = _n_heads(cfg), cfg.rwkv.head_dim
+    b, s, d = x.shape
+    r, k, v, w, g = _projections(p, x, _shift_right(x), cfg)
+    r = _head_split(r, H, dh).float()
+    k = _head_split(k, H, dh).float()
+    v = _head_split(v, H, dh).float()
+    w = _head_split(w, H, dh)
+
+    if impl == "kernel":
+        from ..kernels.rwkv6_scan.ops import rwkv6_scan
+
+        y = rwkv6_scan(r, k, v, w, p["bonus_u"])
+    elif impl == "reference":
+        from ..kernels.rwkv6_scan.ref import rwkv6_reference
+
+        y = rwkv6_reference(*(a.transpose(1, 2) for a in (r, k, v, w)),
+                            p["bonus_u"]).transpose(1, 2)
+    else:
+        raise NotImplementedError(
+            f"rwkv impl {impl!r} is not ported to torch yet (ROADMAP, module item 7); "
+            "use 'reference' or 'kernel'"
+        )
+
+    y = y.reshape(b, s, d).to(x.dtype)
+    y = rms_norm(y, p["ln_x"], cfg.norm_eps)     # group-norm stand-in
+    y = y * activation_fn("silu")(g)
+    return matmul(y, p["w_o"])
+
+
+def rwkv_init_state(cfg: ModelConfig, n_layers: int, batch: int, device) -> Dict:
+    H, dh = _n_heads(cfg), cfg.rwkv.head_dim
+    return {
+        "S": torch.zeros((n_layers, batch, H, dh, dh), dtype=torch.float32, device=device),
+        "x_last": torch.zeros((n_layers, batch, cfg.d_model), dtype=dtype_of(cfg),
+                              device=device),
+    }
+
+
+def rwkv_decode_step(
+    p: Dict, x: torch.Tensor, S: torch.Tensor, x_last: torch.Tensor, cfg: ModelConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One token.  x: (B, 1, d); S: (B, H, dh, dh); x_last: (B, d).
+    Returns (out, new S, new x_last)."""
+    H, dh = _n_heads(cfg), cfg.rwkv.head_dim
+    b, _, d = x.shape
+    r, k, v, w, g = _projections(p, x, x_last[:, None, :], cfg)
+    rt = _head_split(r, H, dh)[:, 0].float()
+    kt = _head_split(k, H, dh)[:, 0].float()
+    vt = _head_split(v, H, dh)[:, 0].float()
+    wt = _head_split(w, H, dh)[:, 0]
+    kv = kt[..., :, None] * vt[..., None, :]
+    att = S + p["bonus_u"][None, :, :, None] * kv
+    y = torch.einsum("bhk,bhkv->bhv", rt, att)
+    S_new = wt[..., :, None] * S + kv
+    y = y.reshape(b, 1, d).to(x.dtype)
+    y = rms_norm(y, p["ln_x"], cfg.norm_eps) * activation_fn("silu")(g)
+    return matmul(y, p["w_o"]), S_new, x[:, 0]

@@ -1,23 +1,38 @@
-# Port of repro/models/transformer.py, the dense path.  What differs:
-# * Layer kinds "rec" and "rwkv", and MoE layers, raise NotImplementedError
-#   (ROADMAP, module item 7); loss_and_aux, param_specs and cache_specs are
-#   left out (training and sharding; module items 6 and 10).
+# Port of repro/models/transformer.py: the dense path and the layer kinds
+# "rec" (RG-LRU, RecurrentGemma) and "rwkv" (RWKV-6).  What differs:
+# * MoE layers raise NotImplementedError (ROADMAP, module item 7);
+#   loss_and_aux, param_specs and cache_specs are left out (training and
+#   sharding; module items 6 and 10).
 # * lax.scan over stacked layer parameters is a Python loop over index i of
 #   the same stacked (n, ...) tensors, so a JAX parameter tree converts leaf
 #   for leaf (convert.params_from_jax).  remat has no counterpart (no
 #   gradients here).
-# * init_params and init_cache take a torch.Generator / a device.
-# * decode_step writes the KV cache in place (see attention_decode) and
-#   keeps the position "t" as a 0-d int32 tensor on the device.
+# * init_params and init_cache take a torch.Generator / a device
+#   (init_cache's default is "cuda", resolved by device.resolve_device).
+# * decode_step updates the cache in place: attention writes the new
+#   token's K/V (see attention_decode), and the recurrent kinds copy their
+#   new state into the cache's tensors.  The position "t" stays a 0-d int32
+#   tensor on the device.
+# * prefill stacks the per-layer caches over whatever leaves each kind
+#   produces (k, v; h, conv; S, x_last).  _rec_state_after runs its scan
+#   through rglru_scan (the kernel on a CUDA tensor, the plain sequential
+#   version on a CPU one) where JAX runs lax.associative_scan, and takes
+#   its last step.  _rwkv_state_after is the reference's token loop.
 # * An embedding lookup of an id outside [-V, V) gives NaN rows and a
 #   negative id in range counts from the end, as jnp.take does.
-# * The second norm of a layer reads the residual sum after attention
+# * The second norm of a layer reads the residual sum after the mixer
 #   unrounded, in f32 (_mlp_half), as XLA's compiled scan body does.
 # * with_logical is gone (a no-op on one card).
-"""LM assembly, dense path: embed -> layer loop -> logits.
+"""LM assembly: embed -> layer loop -> logits.
 
-Per layer: RMSNorm -> GQA attention (optionally local-window) -> residual ->
-RMSNorm -> gated MLP -> residual.
+Per layer kind:
+
+  attn  — GQA attention (optionally local-window) + gated MLP
+  rec   — RG-LRU recurrence + gated MLP
+  rwkv  — RWKV-6 time-mix + gated MLP (channel-mix swapped for SwiGLU of the
+          same width; parameter-count equivalent)
+
+each as RMSNorm -> mixer -> residual -> RMSNorm -> MLP -> residual.
 
 Entry points: ``init_params`` / ``forward`` / ``prefill`` / ``init_cache`` /
 ``decode_step``.
@@ -28,6 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..device import resolve_device
 from .attention import (
     _split_heads,
     attention_decode,
@@ -46,6 +62,24 @@ from .layers import (
     rms_norm,
     rope_angles,
 )
+from .rglru import (
+    _causal_conv,
+    _gates,
+    rglru_decode_step,
+    rglru_full,
+    rglru_init_state,
+    rglru_params,
+)
+from .rwkv6 import (
+    _head_split,
+    _n_heads,
+    _projections,
+    _shift_right,
+    rwkv_decode_step,
+    rwkv_init_state,
+    rwkv_params,
+    rwkv_scan_full,
+)
 
 Params = Dict[str, Any]
 
@@ -55,8 +89,8 @@ def _unported(what: str) -> NotImplementedError:
 
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind != "attn":
-        raise _unported(f"layer kind {kind!r}")
+    if kind not in ("attn", "rec", "rwkv"):
+        raise ValueError(kind)
     if cfg.moe is not None:
         raise _unported("the MoE layer")
 
@@ -72,10 +106,11 @@ def _layer(tree: Any, i: int) -> Any:
 def _sublayer_params(cfg: ModelConfig, kind: str, gen: torch.Generator, n: int) -> Dict:
     _check_kind(cfg, kind)
     dt = dtype_of(cfg)
+    mixer = {"attn": attn_params, "rec": rglru_params, "rwkv": rwkv_params}[kind]
     return {
         "norm1": torch.zeros((n, cfg.d_model), dtype=dt, device=gen.device),
         "norm2": torch.zeros((n, cfg.d_model), dtype=dt, device=gen.device),
-        "attn": attn_params(cfg, gen, n),
+        kind: mixer(cfg, gen, n),
         "mlp": mlp_params(cfg, gen, n),
     }
 
@@ -104,7 +139,12 @@ def _apply_sublayer(
 ) -> torch.Tensor:
     _check_kind(cfg, kind)
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    h = attention_full(lp["attn"], h, cfg, positions, window=cfg.attn_window, impl=impl)
+    if kind == "attn":
+        h = attention_full(lp["attn"], h, cfg, positions, window=cfg.attn_window, impl=impl)
+    elif kind == "rec":
+        h = rglru_full(lp["rec"], h, cfg, impl=impl)
+    else:
+        h = rwkv_scan_full(lp["rwkv"], h, cfg, impl=impl)
     return _mlp_half(cfg, lp, x, h)
 
 
@@ -173,14 +213,20 @@ def forward(
 
 
 # -------------------------------------------------------------------- decode
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu") -> Dict:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dict:
+    device = resolve_device(device)
     cache: Dict[str, Any] = {"t": torch.zeros((), dtype=torch.int32, device=device)}
     for gi, (pattern, rep) in enumerate(cfg.groups):
         g: Dict[str, Any] = {}
         for pi, kind in enumerate(pattern):
             _check_kind(cfg, kind)
-            g[f"pos{pi}"] = init_kv_cache(cfg, rep, batch, max_len, window=cfg.attn_window,
-                                          device=device)
+            if kind == "attn":
+                g[f"pos{pi}"] = init_kv_cache(cfg, rep, batch, max_len,
+                                              window=cfg.attn_window, device=device)
+            elif kind == "rec":
+                g[f"pos{pi}"] = rglru_init_state(cfg, rep, batch, device)
+            else:
+                g[f"pos{pi}"] = rwkv_init_state(cfg, rep, batch, device)
         cache[f"group{gi}"] = g
     return cache
 
@@ -188,8 +234,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu") -> Dict
 def decode_step(
     cfg: ModelConfig, params: Params, token: torch.Tensor, cache: Dict,
 ) -> Tuple[torch.Tensor, Dict]:
-    """token: (B, 1) int.  Returns (logits (B, 1, V), the cache with the new
-    token's K/V written in place and ``t`` advanced)."""
+    """token: (B, 1) int.  Returns (logits (B, 1, V), the cache updated in
+    place (the new token's K/V, the recurrent states) and ``t`` advanced)."""
     t = cache["t"]
     x = _take_rows(params["embed"], token)
     new_cache: Dict[str, Any] = {"t": t + 1}
@@ -203,8 +249,19 @@ def decode_step(
                 lp = layer_params[f"pos{pi}"]
                 lc = gcache[f"pos{pi}"]
                 hin = rms_norm(x, lp["norm1"], cfg.norm_eps)
-                y, _, _ = attention_decode(lp["attn"], hin, lc["k"][i], lc["v"][i], cfg, t,
-                                           window=cfg.attn_window)
+                if kind == "attn":
+                    y, _, _ = attention_decode(lp["attn"], hin, lc["k"][i], lc["v"][i], cfg, t,
+                                               window=cfg.attn_window)
+                elif kind == "rec":
+                    y, hh, conv = rglru_decode_step(lp["rec"], hin, lc["h"][i], lc["conv"][i],
+                                                    cfg)
+                    lc["h"][i].copy_(hh)
+                    lc["conv"][i].copy_(conv)
+                else:
+                    y, S, x_last = rwkv_decode_step(lp["rwkv"], hin, lc["S"][i],
+                                                    lc["x_last"][i], cfg)
+                    lc["S"][i].copy_(S)
+                    lc["x_last"][i].copy_(x_last)
                 x = _mlp_half(cfg, lp, x, y)
         new_cache[f"group{gi}"] = gcache
     return _logits(cfg, params, x), new_cache
@@ -215,9 +272,10 @@ def prefill(
     cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     patches: Optional[torch.Tensor] = None, impl: str = "reference",
 ) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence pass that also builds the decode cache (K/V re-projected
-    per layer, as the JAX package does).  Returns (last-token logits (B, V),
-    cache)."""
+    """Full-sequence pass that also builds the decode cache, as the JAX
+    package does: K/V re-projected per attention layer, recurrent states
+    recomputed by one extra scan per recurrent layer.  Returns (last-token
+    logits (B, V), cache)."""
     x = _embed(cfg, params, tokens, patches)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -233,15 +291,21 @@ def prefill(
                 _check_kind(cfg, kind)
                 lp = layer_params[f"pos{pi}"]
                 hin = rms_norm(x, lp["norm1"], cfg.norm_eps)
-                y = attention_full(lp["attn"], hin, cfg, positions,
-                                   window=cfg.attn_window, impl=impl)
-                new_layer_cache[f"pos{pi}"] = _kv_for_cache(cfg, lp["attn"], hin, positions)
+                if kind == "attn":
+                    y = attention_full(lp["attn"], hin, cfg, positions,
+                                       window=cfg.attn_window, impl=impl)
+                    new_layer_cache[f"pos{pi}"] = _kv_for_cache(cfg, lp["attn"], hin, positions)
+                elif kind == "rec":
+                    y = rglru_full(lp["rec"], hin, cfg, impl=impl)
+                    new_layer_cache[f"pos{pi}"] = _rec_state_after(cfg, lp["rec"], hin)
+                else:
+                    y = rwkv_scan_full(lp["rwkv"], hin, cfg, impl=impl)
+                    new_layer_cache[f"pos{pi}"] = _rwkv_state_after(cfg, lp["rwkv"], hin)
                 x = _mlp_half(cfg, lp, x, y)
             per_layer.append(new_layer_cache)
         cache[f"group{gi}"] = {
-            f"pos{pi}": {kv: torch.stack([c[f"pos{pi}"][kv] for c in per_layer])
-                         for kv in ("k", "v")}
-            for pi in range(len(pattern))
+            pos: {leaf: torch.stack([c[pos][leaf] for c in per_layer]) for leaf in leaves}
+            for pos, leaves in per_layer[0].items()
         }
     logits = _logits(cfg, params, x[:, -1:, :])
     return logits[:, 0, :], cache
@@ -257,3 +321,30 @@ def _kv_for_cache(cfg: ModelConfig, p: Dict, x: torch.Tensor, positions: torch.T
         k = k[:, -cfg.attn_window:]
         v = v[:, -cfg.attn_window:]
     return {"k": k, "v": v}
+
+
+def _rec_state_after(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> Dict:
+    """Final RG-LRU state after the sequence (recomputed, then scanned)."""
+    from ..kernels.rglru_scan.ops import rglru_scan
+
+    b = x.shape[0]
+    xr = matmul(x, p["w_in_x"])
+    prefix = torch.zeros((b, cfg.rec.conv_width - 1, xr.shape[-1]), dtype=xr.dtype,
+                         device=xr.device)
+    a, gx = _gates(p, _causal_conv(xr, p["conv"], prefix))
+    return {"h": rglru_scan(a, gx)[:, -1], "conv": xr[:, -(cfg.rec.conv_width - 1):]}
+
+
+def _rwkv_state_after(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> Dict:
+    """Final RWKV-6 state after the sequence: the reference's token loop
+    over the decays and the outer products."""
+    H, dh = _n_heads(cfg), cfg.rwkv.head_dim
+    b = x.shape[0]
+    _, k, v, w, _ = _projections(p, x, _shift_right(x), cfg)
+    k = _head_split(k, H, dh).float()
+    v = _head_split(v, H, dh).float()
+    w = _head_split(w, H, dh)
+    S = torch.zeros((b, H, dh, dh), dtype=torch.float32, device=x.device)
+    for t in range(x.shape[1]):
+        S = w[:, t][..., :, None] * S + k[:, t][..., :, None] * v[:, t][..., None, :]
+    return {"S": S, "x_last": x[:, -1]}

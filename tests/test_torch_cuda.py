@@ -1,5 +1,6 @@
 """The port on a CUDA device: the hand-written kernels against their plain
-versions, the flush path through them, and the serving path.  Every test here needs a card
+versions, the flush path through them, and the serving paths (dense,
+RWKV-6 and RG-LRU hybrid).  Every test here needs a card
 (marker ``cuda``) and skips without one; this file imports no jax, so it
 runs where only torch is installed:
 
@@ -17,6 +18,10 @@ from repro_torch.kernels.delta_snapshot import dirty_block_mask
 from repro_torch.kernels.delta_snapshot.ref import dirty_block_mask_reference
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_reference
+from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rglru_scan.ref import rglru_reference
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -190,6 +195,96 @@ def test_serve_on_device_uses_the_kernel_and_resumes(tmp_path):
     before = flash_attention.launches
     clean = serve.main(base + ["--workdir", str(tmp_path / "a")])
     assert flash_attention.launches == before + 2  # one prefill, 2 layers
+    resumed = serve.main(base + ["--workdir", str(tmp_path / "b"), "--inject-failure-at", "16"])
+    assert resumed["resumed"]
+    np.testing.assert_array_equal(resumed["tokens"], clean["tokens"])
+
+
+# ------------------------------------------------------------- rwkv6 scan
+def _rwkv_inputs(b, s, h, d, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda") * 0.5 for _ in range(3))
+    w = torch.sigmoid(torch.randn(b, s, h, d, generator=gen, device="cuda"))
+    u = torch.randn(h, d, generator=gen, device="cuda") * 0.3
+    return [x.to(dtype) for x in (r, k, v, w)] + [u]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,d,bt", [(2, 3, 64, 16, 32), (1, 2, 128, 64, 64), (1, 1, 96, 32, 32),
+                                        (2, 5, 100, 64, 100), (4, 40, 256, 64, 256)])
+def test_rwkv6_kernel_equals_plain_version(b, h, t, d, bt, dtype):
+    """1e-4 (abs and rel): both upcast the inputs to f32 and differ only in
+    the order of sums."""
+    r, k, v, w, u = _rwkv_inputs(b, t, h, d, dtype)
+    before = rwkv6_scan.launches
+    got = rwkv6_scan(r, k, v, w, u, block_t=bt)
+    assert rwkv6_scan.launches == before + 1
+    torch.cuda.synchronize()
+    want = rwkv6_reference(*(x.transpose(1, 2) for x in (r, k, v, w)), u).transpose(1, 2)
+    assert got.dtype == torch.float32 and got.shape == r.shape
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_rwkv6_kernel_chunking_independence():
+    r, k, v, w, u = _rwkv_inputs(1, 128, 2, 32, torch.float32, seed=1)
+    assert torch.equal(rwkv6_scan(r, k, v, w, u, block_t=32),
+                       rwkv6_scan(r, k, v, w, u, block_t=128))
+
+
+def test_rwkv6_kernel_rejects_what_it_does_not_take():
+    r, k, v, w, u = _rwkv_inputs(1, 32, 2, 128, torch.float32)
+    with pytest.raises(ValueError, match="head dims"):
+        rwkv6_scan(r, k, v, w, u)
+    r, k, v, w, u = _rwkv_inputs(1, 32, 2, 64, torch.float16)
+    with pytest.raises(TypeError):
+        rwkv6_scan(r, k, v, w, u)
+    r, k, v, w, u = _rwkv_inputs(1, 32, 2, 64, torch.float32)
+    with pytest.raises(TypeError, match="one dtype"):
+        rwkv6_scan(r, k, v, w.bfloat16(), u)
+
+
+# ------------------------------------------------------------- rglru scan
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,bt,bd", [(2, 64, 128, 32, 128), (1, 128, 256, 64, 128),
+                                         (3, 32, 64, 32, 64), (2, 100, 192, 100, 64),
+                                         (4, 256, 4096, 256, 128)])
+def test_rglru_kernel_equals_plain_version(b, t, d, bt, bd, dtype):
+    """Bit for bit: both round the product and the add one at a time."""
+    gen = torch.Generator(device="cuda").manual_seed(b * t + d)
+    a = (torch.sigmoid(torch.randn(b, t, d, generator=gen, device="cuda")) * 0.98).to(dtype)
+    x = torch.randn(b, t, d, generator=gen, device="cuda").to(dtype)
+    before = rglru_scan.launches
+    got = rglru_scan(a, x, block_t=bt, block_d=bd)
+    assert rglru_scan.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == a.shape
+    assert torch.equal(got, rglru_reference(a, x))
+
+
+def test_rglru_kernel_rejects_what_it_does_not_take():
+    a = torch.zeros(1, 32, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        rglru_scan(a, a)
+    with pytest.raises(TypeError, match="one dtype"):
+        rglru_scan(a.float(), a.bfloat16())
+    a = torch.zeros(1, 48, 64, device="cuda")
+    with pytest.raises(ValueError, match="multiple"):
+        rglru_scan(a, a, block_t=32)
+
+
+@pytest.mark.parametrize("arch,width,per_prefill", [
+    ("rwkv6-3b", 128, {"rwkv6": 1}),
+    ("recurrentgemma-9b", 256, {"rglru": 4, "flash": 1}),
+])
+def test_serve_recurrent_on_device_uses_the_kernels_and_resumes(arch, width, per_prefill,
+                                                                 tmp_path):
+    from repro_torch.launch import serve
+
+    counters = {"rwkv6": rwkv6_scan, "rglru": rglru_scan, "flash": flash_attention}
+    base = ["--arch", arch, "--decode-steps", "24", "--flush-every", "8", "--width", str(width)]
+    before = {k: counters[k].launches for k in per_prefill}
+    clean = serve.main(base + ["--workdir", str(tmp_path / "a")])
+    assert {k: counters[k].launches - before[k] for k in per_prefill} == per_prefill
     resumed = serve.main(base + ["--workdir", str(tmp_path / "b"), "--inject-failure-at", "16"])
     assert resumed["resumed"]
     np.testing.assert_array_equal(resumed["tokens"], clean["tokens"])

@@ -100,6 +100,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--decode-steps", "1"])
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_cache, scaled_down
+    from repro_torch.models.attention import init_kv_cache
+
+    for arch in ("stablelm-1.6b", "rwkv6-3b", "recurrentgemma-9b"):
+        cfg = scaled_down(get_arch(arch), width=64)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_cache(cfg, 2, 8)
+        assert init_cache(cfg, 2, 8, device="cpu")["t"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_kv_cache(cfg, 1, 2, 8)
+    assert init_kv_cache(cfg, 1, 2, 8, device="cpu")["k"].device.type == "cpu"
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     assert ci_app("sor", device="cpu").device == "cpu"

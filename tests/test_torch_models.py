@@ -125,7 +125,7 @@ def test_prefill_and_decode_f32_match_jax():
     assert int(tc["t"]) == int(jc["t"]) == s
 
     jcache = jax_splice_cache(jcfg, jax_init_cache(jcfg, b, max_len), jc, s)
-    tcache = _splice_cache(tcfg, init_cache(tcfg, b, max_len), tc, s)
+    tcache = _splice_cache(tcfg, init_cache(tcfg, b, max_len, device="cpu"), tc, s)
     jstep = jax.jit(functools.partial(jax_decode_step, jcfg))
     jtok = jnp.argmax(jl, axis=-1).astype(jnp.int32)[:, None]
     for _ in range(steps):
@@ -180,7 +180,7 @@ def test_bf16_greedy_stream_matches_jax():
 
     tl, tc = prefill(tcfg, tp, torch.from_numpy(toks))
     np.testing.assert_array_equal(_bits(tl), _bits(jl))
-    tcache = _splice_cache(tcfg, init_cache(tcfg, b, max_len), tc, s)
+    tcache = _splice_cache(tcfg, init_cache(tcfg, b, max_len, device="cpu"), tc, s)
     ttok = tl.argmax(dim=-1).to(torch.int32)[:, None]
     tstream = [ttok.numpy()]
     for _ in range(steps):
@@ -201,9 +201,6 @@ def test_out_of_range_token_embeds_as_nan_like_jax():
 
 
 def test_unported_paths_name_their_roadmap_item():
-    cfg = scaled_down(get_arch("rwkv6-3b"), width=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP, module item 7"):
-        init_params(cfg, torch.Generator().manual_seed(0))
     cfg = scaled_down(get_arch("qwen2-moe-a2.7b"), width=64)
     with pytest.raises(NotImplementedError, match="ROADMAP, module item 7"):
         init_params(cfg, torch.Generator().manual_seed(0))
