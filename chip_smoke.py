@@ -18,19 +18,23 @@ Phases, in order; any failure ends the run with a nonzero exit:
    masks come from the ``delta_snapshot`` kernel; then a crash, a restore
    from the NVM arena, and more iterations from the restored state, each
    flushed again through the kernel against the shadow the restore left;
-5. flash attention: the ``flash_attention`` kernel against its plain
-   version on the card over a grid of dtypes, head dims, masks, lengths and
-   tiles and at both serving paths' prefill shapes (StableLM-2-1.6B's, and
-   RecurrentGemma-9B's D 256 with k and v repeated from one kv head, window
-   2048), then kernel, plain version and ``F.scaled_dot_product_attention``
-   (the library yardstick, never on the path) timed at both shapes beside
-   their bounds;
+5. flash attention: the ``flash_attention`` kernels (the bf16 ``wgmma``
+   route, the f32 SIMT route) against their plain version on the card over
+   a grid of dtypes, head dims, masks, lengths and tiles, the bf16 route's
+   edges (windows under its kv tile, non-causal windows, ragged S) and both
+   serving paths' prefill shapes (StableLM-2-1.6B's, and RecurrentGemma-9B's
+   D 256 with k and v repeated from one kv head, window 2048); rows wholly
+   masked inside live tiles against a float64 softmax over their keys; two
+   bf16 launches bit for bit; then kernel, plain version and
+   ``F.scaled_dot_product_attention`` (the library yardstick, never on the
+   path) timed at both shapes beside their bounds;
 6. decode characterization: the decode crash campaign reproduces its pinned
    golden on the card, and ``run_workflow`` gives the JAX package's plan;
 7. serving at full width: StableLM-2-1.6B (24 layers, 1.64 B parameters,
    random bf16 weights from a seeded generator) prefills 4 prompts of 1024
    tokens with the flash-attention kernel (checked against the reference
-   prefill in float32 weights), decodes 64 tokens and delta-flushes the KV cache every 16
+   prefill in float32 weights, then timed alone and warm three times),
+   decodes 64 tokens and delta-flushes the KV cache every 16
    steps through ``delta_snapshot``; then a crash at step 32 and a resume
    from the reattached arena, whose token stream must equal the
    uninterrupted one;
@@ -59,6 +63,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -185,9 +190,35 @@ def phase_environment() -> str:
         f"in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if name != "flash_attention" and ("registers" in line or "spill" in line):
                 log(f"[env] ptxas {name}: {line.strip()}")
+    for kernel, info in flash_ptxas().items():
+        log(f"[env] ptxas flash_attention {kernel}: {info}")
     return gpu
+
+
+def flash_ptxas() -> dict:
+    """Registers, stack and spills of each flash-attention kernel from the
+    ptxas report of this run's build (``-Xptxas -v``), with any wgmma
+    serialization warning; {} if the library was built by an earlier run."""
+    text = _build.BUILD_LOGS.get("flash_attention", "")
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '\S*flash_(wgmma|simt)_kernelILi(\d+)E(?:Li(\d+)E)?",
+                      line)
+        if m:
+            route, d, kv = m.groups()
+            name = f"{route} D={d}" + (f" kv={kv}" if kv else "")
+            out[name] = {}
+        elif name and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[name].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    warnings = [line.strip() for line in text.splitlines() if "wgmma" in line and "C75" in line]
+    if warnings:
+        out["warnings"] = warnings
+    return out
 
 
 # --------------------------------------------- 2. kernel against plain version
@@ -436,6 +467,19 @@ def _flash_cases():
                         yield (f"{dtype} D={d} S={s} blk={blk} causal={causal} window={window}",
                                (1, s, 2, d), dtype, causal, window, blk, 2)
         yield f"{dtype} ragged S=100", (2, 100, 3, 64), dtype, True, None, 128, 3
+    # the bf16 route's edges: windows under its kv tile (128 rows at D 64 and
+    # 128, 64 at D 256), so rows of a live tile are wholly masked; a
+    # non-causal window; ragged S at every D; a q tile's second warpgroup
+    # wholly past S (S 64)
+    for d in (64, 128, 256):
+        for causal, window in ((True, 8), (True, 32), (True, 48), (False, 40), (False, 8)):
+            yield (f"bf16 route D={d} S=256 causal={causal} window={window}",
+                   (2, 256, 2, d), torch.bfloat16, causal, window, 128, 2)
+        for s, blk in ((100, 128), (64, 64), (192, 64)):
+            yield (f"bf16 route D={d} ragged S={s}", (2, s, 3, d), torch.bfloat16, True, None,
+                   blk, 3)
+        yield (f"bf16 route D={d} S=512 non-causal", (1, 512, 2, d), torch.bfloat16,
+               False, None, 128, 2)
     for path, (shape, hkv, window) in ATTN_PATHS.items():
         yield f"{path} shape", shape, torch.bfloat16, True, window, 128, hkv
 
@@ -448,6 +492,28 @@ def _attn_inputs(gen, shape, hkv: int, dtype):
     k, v = (_repeat_kv(torch.randn((b, s, hkv, d), generator=gen, device=gen.device).to(dtype),
                        h // hkv) for _ in range(2))
     return q, k, v
+
+
+def _check_masked_rows(gen) -> None:
+    """Causal window 8 under the bf16 route's kv tile: each row's 8 keys,
+    and no weight from the wholly masked rows of the live tiles around
+    them, against a float64 softmax over exactly those keys (2e-2, the
+    bf16 tolerance)."""
+    for d in (64, 256):
+        q, k, v = (torch.randn(1, 256, 1, d, generator=gen, device=gen.device)
+                   .to(torch.bfloat16) for _ in range(3))
+        got = flash_attention(q, k, v, causal=True, window=8, block_q=64, block_k=64)
+        qs, ks, vs = (x[0, :, 0].double() for x in (q, k, v))
+        for i in (0, 7, 8, 63, 64, 100, 127, 128, 135, 255):
+            lo = max(0, i - 7)
+            w = torch.softmax((qs[i] @ ks[lo:i + 1].T) * d ** -0.5, dim=0)
+            want = (w @ vs[lo:i + 1]).float()
+            if not torch.allclose(got[0, i, 0].float(), want, atol=2e-2, rtol=2e-2):
+                raise AssertionError(f"flash_attention bf16 D={d} window 8: row {i} differs "
+                                     f"from its 8 keys' softmax by "
+                                     f"{float((got[0, i, 0].float() - want).abs().max()):.3e}")
+    log("[flash] bf16 rows wholly masked inside live kv tiles take no weight (window 8, "
+        "D 64 and 256)")
 
 
 def attn_bound_ms(b: int, s: int, h: int, d: int, window=None) -> tuple:
@@ -465,10 +531,15 @@ def attn_bound_ms(b: int, s: int, h: int, d: int, window=None) -> tuple:
 
 
 def _time_flash(gen, path: str) -> dict:
-    """Kernel, plain version and SDPA at one path's prefill shape."""
+    """Kernel, plain version and SDPA at one path's prefill shape, on k and v
+    as the kernel reads them (contiguous, repeated to H heads); and the op as
+    the path calls it (``path_ms``), whose k and v from ``_repeat_kv`` are a
+    stride-0 view when there is one kv head, so the wrapper copies them."""
     shape, hkv, window = ATTN_PATHS[path]
     bsz, s, h, d = shape
     q, k, v = _attn_inputs(gen, shape, hkv, torch.bfloat16)
+    path_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
+    k, v = k.contiguous(), v.contiguous()
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
     plain_ms = cuda_ms(lambda: attention_reference(q.transpose(1, 2), k.transpose(1, 2),
                                                    v.transpose(1, 2), causal=True,
@@ -482,13 +553,14 @@ def _time_flash(gen, path: str) -> dict:
         qt, kt, vt, attn_mask=mask, is_causal=mask is None))
     bound, bound_by = attn_bound_ms(bsz, s, h, d, window)
     log(f"[flash] flash_attention at the {path} shape B={bsz} S={s} H={h} (kv {hkv}) D={d} "
-        f"bf16 causal window={window}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-        f"{library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; {bound / ms:.1%} of the bound)")
+        f"bf16 causal window={window}: kernel {ms:.4f} ms, as the path calls it {path_ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({bound_by}; {bound / ms:.1%} of the bound)")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return {"shape": list(shape), "kv_heads": hkv, "window": window, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
-            "bound_by": bound_by}
+            "path_ms": path_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": bound_by}
 
 
 def phase_flash(dev: str) -> dict:
@@ -518,6 +590,16 @@ def phase_flash(dev: str) -> dict:
         raise AssertionError(f"flash_attention: kv tiles 32 and 64 differ by {tile_err:.3e}")
     log(f"[flash] flash_attention within tolerance of its plain version in {n} cases "
         f"(max |diff| {max_err:.3e}); kv tiles 32 vs 64 differ by {tile_err:.3e}")
+    _check_masked_rows(gen)
+    for path, (shape, hkv, window) in ATTN_PATHS.items():
+        q, k, v = _attn_inputs(gen, shape, hkv, torch.bfloat16)
+        a = flash_attention(q, k, v, causal=True, window=window)
+        b = flash_attention(q, k, v, causal=True, window=window)
+        if not torch.equal(a, b):
+            raise AssertionError(f"flash_attention: two bf16 launches at the {path} shape differ "
+                                 f"in {int((a != b).sum())} elements")
+        del q, k, v, a, b
+    log("[flash] two bf16 launches give the same bits at both paths' shapes")
 
     by_path = {path: _time_flash(gen, path) for path in ATTN_PATHS}
     head = by_path["serve_stablelm"]
@@ -607,6 +689,17 @@ def phase_serve(dev: str) -> dict:
         raise AssertionError(f"a prefill launched flash_attention {per_prefill} times, "
                              f"not once per layer ({cfg.n_layers})")
 
+    # the kernel prefill alone and warm, beside serve.run's prefill_ms below
+    # (which also allocates and fills the decode cache)
+    warm_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(cfg, params, prompts, impl="kernel")
+        torch.cuda.synchronize()
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[serve] kernel prefill alone, warm: {', '.join(f'{x:.1f}' for x in warm_ms)} ms")
+
     profile = _profile_decode(cfg, params, prompts, dev)
     torch.cuda.empty_cache()
 
@@ -651,6 +744,7 @@ def phase_serve(dev: str) -> dict:
     split = clean["flush_split_ms"]
     out = {
         "prefill_ms": clean["prefill_ms"],
+        "prefill_warm_ms": warm_ms,
         "decode_ms_per_step": clean["decode_ms_per_step"],
         "tokens_per_s": clean["tokens_per_s"],
         "flush_ms_mean": clean["flush_ms"] / n_flush,
@@ -1132,6 +1226,7 @@ def main() -> int:
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
         "by_path": flash["by_path"],
+        "ptxas": flash_ptxas(),
     }, {
         "name": "rwkv6_scan",
         "route": "cuda",

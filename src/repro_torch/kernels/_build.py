@@ -5,6 +5,10 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 (listed in ``.gitignore``), under a name that carries a hash of the source
 and the flags, so an edited source rebuilds.  The library is loaded with
 :mod:`ctypes`.  Nothing is built when this module is imported.
+
+No source links the driver library: ``flash_attention.cu`` encodes its TMA
+tensor maps with ``cuTensorMapEncodeTiled``, which it finds at run time
+through the CUDA runtime's driver entry point.  No source includes CUTLASS.
 """
 from __future__ import annotations
 

@@ -122,7 +122,10 @@ def test_sor_iteration_stays_on_device():
 
 # ------------------------------------------------------------ flash attention
 #: tests/test_kernels.py's grid of (b, h, s, d, causal, window, block), plus
-#: D 256, a window under the block, and a ragged S
+#: D 256, a window under the block, and a ragged S; then the bf16 route's
+#: edges: windows under its kv tile (128 rows at D 64 and 128, 64 at D 256)
+#: at D 128 and 256, a non-causal window, a ragged S at D 128 and 256, and
+#: S 64 (the q tile's second warpgroup wholly past S)
 FLASH_CASES = [
     (2, 4, 256, 64, True, None, 128),
     (1, 2, 128, 64, True, None, 64),
@@ -132,6 +135,12 @@ FLASH_CASES = [
     (1, 2, 256, 256, True, None, 128),
     (1, 2, 256, 64, False, 8, 32),
     (1, 2, 100, 64, True, None, 128),
+    (1, 2, 256, 128, True, 48, 128),
+    (1, 2, 256, 256, True, 32, 128),
+    (1, 2, 256, 256, False, 40, 128),
+    (2, 3, 100, 128, True, None, 128),
+    (2, 3, 100, 256, False, None, 128),
+    (1, 2, 64, 64, True, None, 64),
 ]
 
 
@@ -161,6 +170,42 @@ def test_flash_kernel_tile_independence():
     a = flash_attention(q, k, v, block_q=32, block_k=32)
     b = flash_attention(q, k, v, block_q=128, block_k=128)
     torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d,window", [(64, None), (256, 2048), (128, 40)])
+def test_flash_bf16_launches_are_bitwise_repeatable(d, window):
+    """No atomics and no split over kv: the served stream's crash/resume
+    check needs the same bits from every prefill."""
+    q, k, v = _flash_inputs(2, 1024, 4, d, torch.bfloat16, seed=d)
+    a = flash_attention(q, k, v, causal=True, window=window)
+    b = flash_attention(q, k, v, causal=True, window=window)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bf16_fully_masked_rows_of_a_live_tile_get_no_weight(d):
+    """Window 8 under the kv tile: rows whose 8 keys all lie in a later tile
+    are wholly masked in the live tile before it, and take nothing from it."""
+    q, k, v = _flash_inputs(1, 256, 1, d, torch.bfloat16, seed=2)
+    got = flash_attention(q, k, v, causal=True, window=8, block_q=64, block_k=64)
+    qs, ks, vs = (x[0, :, 0].double() for x in (q, k, v))
+    for i in (0, 7, 8, 63, 64, 100, 127, 128, 135, 255):
+        lo = max(0, i - 7)
+        w = torch.softmax((qs[i] @ ks[lo:i + 1].T) * d ** -0.5, dim=0)
+        torch.testing.assert_close(got[0, i, 0].float(), (w @ vs[lo:i + 1]).float(),
+                                   atol=2e-2, rtol=2e-2)
+
+
+def test_flash_kernel_takes_a_misaligned_view():
+    """A TMA tensor map needs a 16-byte aligned base: a view that starts
+    anywhere is copied first, and the result is the plain version's."""
+    buf = torch.randn(1 + 3 * 128 * 2 * 64, device="cuda").to(torch.bfloat16)
+    q = buf[1:].view(3, 128, 2, 64)[:1]
+    k, v = buf[1:].view(3, 128, 2, 64)[1:2], buf[1:].view(3, 128, 2, 64)[2:]
+    got = flash_attention(q, k, v)
+    want = attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               causal=True).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():

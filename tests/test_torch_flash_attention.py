@@ -90,3 +90,65 @@ def test_fully_masked_rows_of_a_live_block_get_no_weight():
         w = torch.softmax((qs[i] @ ks[lo:i + 1].T) * 64 ** -0.5, dim=0)
         np.testing.assert_allclose(got[0, i, 0].numpy(), (w @ vs[lo:i + 1]).numpy(),
                                    atol=2e-5, rtol=2e-5)
+
+
+# ------------------------------------------------ the CUDA wrapper's routes
+from pathlib import Path  # noqa: E402
+
+from repro_torch.kernels.flash_attention import ops  # noqa: E402
+
+KERNEL_SOURCE = Path(ops.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_bf16_takes_the_wgmma_route_with_its_tiles_per_head_dim(d):
+    for block_k in (16, 32, 64, 128, 512):  # block_k picks no tile of this route
+        route = ops.kernel_route(torch.bfloat16, d, block_k)
+        assert route["route"] == "wgmma"
+        assert route["q_rows"] == 128  # two consumer warpgroups of 64 rows
+        assert (route["kv_tile"], route["stages"]) == ops.BF16_TILES[d]
+    assert ops.BF16_TILES == {64: (128, 3), 128: (128, 2), 256: (64, 2)}
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("block_k,kv_tile", [(8, 32), (32, 32), (64, 64), (128, 64), (1024, 64)])
+def test_f32_takes_the_simt_route_with_kv_tile_from_block_k(d, block_k, kv_tile):
+    route = ops.kernel_route(torch.float32, d, block_k)
+    assert route["route"] == "simt" and route["q_rows"] == 64
+    assert route["kv_tile"] == kv_tile
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_every_route_fits_a_ctas_shared_memory(dtype, d):
+    for block_k in (32, 128):
+        assert ops.kernel_route(dtype, d, block_k)["smem_bytes"] <= ops.SMEM_LIMIT
+
+
+def test_bf16_tiles_mirror_the_kernel_source():
+    import re
+
+    text = KERNEL_SOURCE.read_text()
+    found = {int(d): (int(bk), int(st)) for d, bk, st in re.findall(
+        r"struct Bf16Tiles<(\d+)> \{ static constexpr int kBK = (\d+), kStages = (\d+); \}", text)}
+    assert found == ops.BF16_TILES
+    assert f"constexpr int kBQ = {ops.BF16_Q_ROWS};" in text
+
+
+def test_route_rejects_what_no_kernel_takes():
+    with pytest.raises(TypeError):
+        ops.kernel_route(torch.float16, 64, 128)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.kernel_route(torch.bfloat16, 96, 128)
+
+
+def test_tma_operands_are_contiguous_and_16_byte_aligned():
+    buf = torch.zeros(1 + 2 * 128 * 2 * 64, dtype=torch.bfloat16)
+    view = buf[1:].view(2, 128, 2, 64)  # starts 2 bytes into the buffer
+    assert view.data_ptr() % 16 != 0
+    got = ops._tma_ready(view)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous() and torch.equal(got, view)
+    fresh = torch.zeros(2, 128, 2, 64, dtype=torch.bfloat16)
+    assert ops._tma_ready(fresh) is fresh  # already fit: no copy
+    strided = fresh.transpose(1, 2)
+    assert ops._tma_ready(strided).is_contiguous()
