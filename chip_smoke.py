@@ -38,19 +38,25 @@ Phases, in order; any failure ends the run with a nonzero exit:
    steps through ``delta_snapshot``; then a crash at step 32 and a resume
    from the reattached arena, whose token stream must equal the
    uninterrupted one;
-8. the recurrent kernels: ``rwkv6_scan`` and ``rglru_scan`` against their
-   plain versions on the card over dtypes, blocks and head dims, then both
-   timed at the serving paths' shapes beside their bounds;
+8. the recurrent kernels: ``rwkv6_scan`` (output and final state) and
+   ``rglru_scan`` (bit for bit, also on its direct path for rows off 16
+   bytes) against their plain versions on the card over dtypes, blocks,
+   head dims and ragged lengths, each kernel's ptxas registers and spills
+   (none allowed), then both timed at the serving paths' shapes beside
+   their bounds;
 9. serving RWKV6-3B at full width and depth (32 layers, random bf16
    weights): its kernel prefill against the reference prefill in float32
    weights, then the same flow as phase 7 (4 prompts of 1024 tokens, 64
    steps, a delta flush every 16, a crash at 32, a resume), with every
    flushed image equal to the live bytes and the resumed stream equal to
-   the uninterrupted one; the prefill runs ``rwkv6_scan`` once per layer;
+   the uninterrupted one; the prefill runs ``rwkv6_scan`` once per layer,
+   and the decode cache's state comes from the scan;
 10. serving RecurrentGemma-9B at full width and depth (38 layers, 26 RG-LRU
    and 12 local-attention layers) the same way, its float32 comparison at
-   a reduced depth of 5 layers; the prefill runs ``rglru_scan`` twice per
-   RG-LRU layer and ``flash_attention`` once per attention layer.
+   a reduced depth of 5 layers; the prefill runs ``rglru_scan`` once per
+   RG-LRU layer (the cache's state is the scan's last step) and
+   ``flash_attention`` once per attention layer.  Both prefills are
+   profiled once: wall time, and the scan kernels' device time within it.
 
 The second line from the end is a JSON object with one entry per kernel,
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -104,7 +110,6 @@ from repro_torch.kernels.rwkv6_scan.ref import rwkv6_reference  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.steps import make_decode_fn  # noqa: E402
 from repro_torch.models import init_cache, init_params, prefill  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.attention import _repeat_kv  # noqa: E402
 
 #: H100 SXM device-memory rate, bytes/s, and dense bf16 tensor-core rate,
@@ -199,8 +204,8 @@ def phase_environment() -> str:
 
 def flash_ptxas() -> dict:
     """Registers, stack and spills of each flash-attention kernel from the
-    ptxas report of this run's build (``-Xptxas -v``), with any wgmma
-    serialization warning; {} if the library was built by an earlier run."""
+    ptxas report of its build (``-Xptxas -v``, kept beside the library),
+    with any wgmma serialization warning; {} if no report was kept."""
     text = _build.BUILD_LOGS.get("flash_attention", "")
     out, name = {}, None
     for line in text.splitlines():
@@ -837,8 +842,42 @@ def _rwkv_inputs(gen, shape, dtype, model_decay=False):
     return [x.to(dtype) for x in (r, k, v, w)] + [u]
 
 
-def _rwkv_plain(r, k, v, w, u):
-    return rwkv6_reference(*(x.transpose(1, 2) for x in (r, k, v, w)), u).transpose(1, 2)
+def _rwkv_plain(r, k, v, w, u, return_state=False):
+    y, S = rwkv6_reference(*(x.transpose(1, 2) for x in (r, k, v, w)), u, return_state=True)
+    return (y.transpose(1, 2), S) if return_state else y.transpose(1, 2)
+
+
+def scan_ptxas(name: str) -> dict:
+    """Registers, stack and spills of each kernel of ``csrc/<name>.cu`` from
+    the ptxas report of its build (``-Xptxas -v``, kept beside the library);
+    {} if no report was kept."""
+    text = _build.BUILD_LOGS.get(name, "")
+    out, key = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(rwkv6_scan_kernel|rglru_scan_ring|"
+                      r"rglru_scan_direct)I(f|13__nv_bfloat16)E?(?:Li(\d+)E)?", line)
+        if m:
+            kernel, t, d = m.groups()
+            key = f"{kernel} {'f32' if t == 'f' else 'bf16'}" + (f" D={d}" if d else "")
+            out[key] = {}
+        elif key and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[key].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif key and "Used" in line and "registers" in line:
+            out[key]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def _check_ptxas(name: str) -> dict:
+    info = scan_ptxas(name)
+    for kernel, v in info.items():
+        log(f"[{name}] ptxas {kernel}: {v}")
+    spilled = {k: v for k, v in info.items() if v.get("spill_stores") or v.get("spill_loads")}
+    if spilled:
+        raise AssertionError(f"{name}: ptxas reports spills in {spilled}")
+    if not info:
+        log(f"[{name}] no ptxas report kept for this library")
+    return info
 
 
 def rwkv_bound_ms(b: int, s: int, h: int, d: int) -> tuple:
@@ -856,10 +895,13 @@ def rwkv_bound_ms(b: int, s: int, h: int, d: int) -> tuple:
 def phase_rwkv_kernel(dev: str) -> dict:
     """Kernel against plain version to 1e-4 (abs and rel; both upcast to f32
     and differ in the order of sums) over f32 and bf16 inputs, D 16, 32, 64
-    and block_t 32, 64, 256; the result independent of block_t; the path's
-    shape with the model's decay; then the path's shape timed."""
+    and block_t 32, 64, 256; the final state too, at a length off the
+    kernel's 16-token chunk; the result independent of block_t and of
+    return_state, and the same bits on a second launch; the path's shape
+    with the model's decay, output and state; then the path's call
+    (with the state) timed."""
     gen = torch.Generator(device=dev).manual_seed(5)
-    max_err, n = 0.0, 0
+    max_err, state_err, n = 0.0, 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
         for d in (16, 32, 64):
             for bt in (32, 64, 256):
@@ -870,25 +912,44 @@ def phase_rwkv_kernel(dev: str) -> dict:
                 err = _check_close(f"rwkv6_scan {dtype} D={d} block_t={bt}", got,
                                    _rwkv_plain(r, k, v, w, u), 1e-4)
                 max_err, n = max(max_err, err), n + 1
+            r, k, v, w, u = _rwkv_inputs(gen, (2, 100, 3, d), dtype)
+            y, S = rwkv6_scan(r, k, v, w, u, block_t=100, return_state=True)
+            torch.cuda.synchronize()
+            want_y, want_S = _rwkv_plain(r, k, v, w, u, return_state=True)
+            max_err = max(max_err, _check_close(f"rwkv6_scan {dtype} D={d} T=100", y, want_y,
+                                                1e-4))
+            state_err = max(state_err, _check_close(f"rwkv6_scan {dtype} D={d} T=100 state", S,
+                                                    want_S, 1e-4))
+            n += 1
     r, k, v, w, u = _rwkv_inputs(gen, RWKV_SHAPE, torch.float32, model_decay=True)
-    got = rwkv6_scan(r, k, v, w, u)
+    got, S = rwkv6_scan(r, k, v, w, u, return_state=True)
     torch.cuda.synchronize()
-    max_err = max(max_err, _check_close("rwkv6_scan path shape", got,
-                                        _rwkv_plain(r, k, v, w, u), 1e-4))
+    want_y, want_S = _rwkv_plain(r, k, v, w, u, return_state=True)
+    max_err = max(max_err, _check_close("rwkv6_scan path shape", got, want_y, 1e-4))
+    state_err = max(state_err, _check_close("rwkv6_scan path shape state", S, want_S, 1e-4))
+    del want_y, want_S
     if not torch.equal(got, rwkv6_scan(r, k, v, w, u, block_t=32)):
-        raise AssertionError("rwkv6_scan: block_t 32 and 256 differ")
-    log(f"[rwkv6] rwkv6_scan within 1e-4 of its plain version in {n + 1} cases "
-        f"(max |diff| {max_err:.3e}); block_t 32 and 256 equal")
+        raise AssertionError("rwkv6_scan: block_t 32 and 256 differ, or the output with the "
+                             "state differs from the output without it")
+    again, S_again = rwkv6_scan(r, k, v, w, u, return_state=True)
+    if not (torch.equal(got, again) and torch.equal(S, S_again)):
+        raise AssertionError("rwkv6_scan: two launches differ")
+    log(f"[rwkv6] rwkv6_scan within 1e-4 of its plain version in {n + 1} cases (max |diff| "
+        f"{max_err:.3e}; final state {state_err:.3e}); block_t 32 and 256, with and without "
+        f"the state, and two launches: the same bits")
+    ptxas = _check_ptxas("rwkv6_scan")
 
-    ms = cuda_ms(lambda: rwkv6_scan(r, k, v, w, u))
-    plain_ms = cuda_ms(lambda: _rwkv_plain(r, k, v, w, u), reps=5, warmup=1)
+    ms = cuda_ms(lambda: rwkv6_scan(r, k, v, w, u, return_state=True))
+    plain_ms = cuda_ms(lambda: _rwkv_plain(r, k, v, w, u, return_state=True), reps=5, warmup=1)
     bound, bound_by = rwkv_bound_ms(*RWKV_SHAPE)
-    log(f"[rwkv6] rwkv6_scan at (B, S, H, D) = {RWKV_SHAPE} f32: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; {bound / ms:.1%} of the bound)")
-    del r, k, v, w, u, got
+    log(f"[rwkv6] rwkv6_scan at (B, S, H, D) = {RWKV_SHAPE} f32, with the final state: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+        f"{bound / ms:.1%} of the bound)")
+    del r, k, v, w, u, got, S, again, S_again
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "max_abs_err": max_err}
+            "max_abs_err": max(max_err, state_err), "state_max_abs_err": state_err,
+            "ptxas": ptxas}
 
 
 def rglru_bound_ms(b: int, t: int, d: int) -> float:
@@ -899,27 +960,31 @@ def rglru_bound_ms(b: int, t: int, d: int) -> float:
 
 
 def phase_rglru_kernel(dev: str) -> dict:
-    """Kernel against plain version to 1e-4 (abs and rel) over f32 and bf16
-    inputs, block_d 64 and 128, block_t 64 and 256 and the path's shape; both
-    round the product and the add one at a time, so they are expected to
-    agree bit for bit (printed).  Then the path's shape timed."""
+    """Kernel against plain version bit for bit (both round the product and
+    the add one at a time) over f32 and bf16 inputs, block_d 64 and 128,
+    block_t 64 and 256, a ragged length, rows off 16 bytes (D 75: the
+    kernel's direct path) and the path's shape.  Then the path's shape
+    timed."""
     gen = torch.Generator(device=dev).manual_seed(6)
-    max_err, n, exact = 0.0, 0, True
+    n = 0
     cases = [(dtype, (2, 256, 256), bt, bd) for dtype in (torch.float32, torch.bfloat16)
              for bt in (64, 256) for bd in (64, 128)]
-    cases += [(torch.float32, (3, 64, 192), 64, 64), (torch.float32, RGLRU_SHAPE, 256, 128)]
+    cases += [(dtype, shape, shape[1], bd) for dtype in (torch.float32, torch.bfloat16)
+              for shape, bd in (((3, 64, 192), 64), ((2, 100, 256), 128), ((3, 50, 75), 75))]
+    cases += [(torch.float32, RGLRU_SHAPE, 256, 128)]
     for dtype, shape, bt, bd in cases:
         a = (torch.sigmoid(torch.randn(shape, generator=gen, device=dev)) * 0.98).to(dtype)
         x = torch.randn(shape, generator=gen, device=dev).to(dtype)
         got = rglru_scan(a, x, block_t=bt, block_d=bd)
         torch.cuda.synchronize()
         want = rglru_reference(a, x)
-        err = _check_close(f"rglru_scan {dtype} {shape} block_t={bt} block_d={bd}", got, want,
-                           1e-4)
-        exact = exact and torch.equal(got, want)
-        max_err, n = max(max_err, err), n + 1
-    log(f"[rglru] rglru_scan within 1e-4 of its plain version in {n} cases "
-        f"(max |diff| {max_err:.3e}; bit for bit: {exact})")
+        if got.shape != want.shape or got.dtype != torch.float32 or not torch.equal(got, want):
+            err = float((got.float() - want).abs().max()) if got.shape == want.shape else None
+            raise AssertionError(f"rglru_scan {dtype} {shape} block_t={bt} block_d={bd}: not "
+                                 f"bit for bit its plain version (max |diff| {err})")
+        n += 1
+    log(f"[rglru] rglru_scan equals its plain version bit for bit in {n} cases")
+    ptxas = _check_ptxas("rglru_scan")
     ms = cuda_ms(lambda: rglru_scan(a, x))
     plain_ms = cuda_ms(lambda: rglru_reference(a, x), reps=5, warmup=1)
     bound = rglru_bound_ms(*RGLRU_SHAPE)
@@ -928,7 +993,7 @@ def phase_rglru_kernel(dev: str) -> dict:
     del a, x, got, want
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "max_abs_err": max_err, "exact": exact}
+            "max_abs_err": 0.0, "exact": True, "ptxas": ptxas}
 
 
 # --------------------------------------------- 9, 10. serving recurrent models
@@ -953,38 +1018,43 @@ def _compare_prefills(name: str, cfg, params, prompts) -> None:
     torch.cuda.empty_cache()
 
 
-def _prefill_breakdown(name: str, cfg, params, prompts) -> dict:
-    """One bf16 kernel prefill with the recurrent-state recompute
-    (_rwkv_state_after / _rec_state_after) timed apart, each call
-    synchronized on both sides."""
-    spent = {"state_after_ms": 0.0}
-    originals = {k: getattr(transformer, k) for k in ("_rwkv_state_after", "_rec_state_after")}
-
-    def timed(fn):
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            spent["state_after_ms"] += (time.perf_counter() - t0) * 1e3
-            return out
-        return wrapper
-
-    try:
-        for k, fn in originals.items():
-            setattr(transformer, k, timed(fn))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+def _prefill_profile(name: str, cfg, params, prompts, kernels: tuple) -> dict:
+    """One bf16 kernel prefill timed warm on the host clock, then one under
+    torch.profiler: the device time of all its kernels and of the named
+    scan kernels (their launches and ms) within it."""
+    prefill(cfg, params, prompts, impl="kernel")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(cfg, params, prompts, impl="kernel")
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
         prefill(cfg, params, prompts, impl="kernel")
         torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3
-    finally:
-        for k, fn in originals.items():
-            setattr(transformer, k, fn)
-    out = {"prefill_ms": total, "state_after_ms": spent["state_after_ms"],
-           "rest_ms": total - spent["state_after_ms"]}
-    log(f"[{name}] prefill breakdown: {total:.1f} ms, of it the recurrent-state recompute "
-        f"{out['state_after_ms']:.1f} ms, the rest {out['rest_ms']:.1f} ms")
+    device_ms, scan = 0.0, {k: [0.0, 0] for k in kernels}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        device_ms += dev_us / 1e3
+        for k in kernels:
+            if k in e.key:
+                scan[k][0] += dev_us / 1e3
+                scan[k][1] += e.count
+    out = {"prefill_ms": wall_ms,
+           "device_ms": device_ms if device_ms else None,
+           "kernels": {k: {"ms": v[0], "launches": v[1]} for k, v in scan.items()}
+           if device_ms else None}
+    if device_ms:
+        log(f"[{name}] prefill {wall_ms:.1f} ms (warm, host clock); under the profiler its "
+            f"kernels take {device_ms:.1f} ms of device time, of it "
+            + ", ".join(f"{k} {v[0]:.2f} ms in {v[1]} launches" for k, v in scan.items()))
+    else:
+        log(f"[{name}] prefill {wall_ms:.1f} ms (warm, host clock); the profiler reported no "
+            "device time (the kernels' share not measured)")
     torch.cuda.empty_cache()
     return out
 
@@ -1065,7 +1135,7 @@ def phase_serve_rwkv(dev: str) -> dict:
         f"parameters in {cfg.dtype}, init {time.perf_counter() - t0:.1f} s")
     prompts = serve.make_prompts(cfg, SERVE_PROMPTS, SERVE_PROMPT_LEN, dev)
     _compare_prefills("rwkv", cfg, params, prompts)
-    breakdown = _prefill_breakdown("rwkv", cfg, params, prompts)
+    breakdown = _prefill_profile("rwkv", cfg, params, prompts, ("rwkv6_scan",))
     profile = _profile_decode(cfg, params, prompts, dev, name="rwkv")
     torch.cuda.empty_cache()
 
@@ -1115,7 +1185,7 @@ def phase_serve_rg(dev: str) -> dict:
         f"parameters in {cfg.dtype}, init {time.perf_counter() - t0:.1f} s")
     prompts = serve.make_prompts(cfg, SERVE_PROMPTS, SERVE_PROMPT_LEN, dev)
     _compare_prefills("rg", *_rg_reduced(cfg, params), prompts)
-    breakdown = _prefill_breakdown("rg", cfg, params, prompts)
+    breakdown = _prefill_profile("rg", cfg, params, prompts, ("rglru_scan", "flash_"))
     profile = _profile_decode(cfg, params, prompts, dev, name="rg")
     torch.cuda.empty_cache()
 
@@ -1129,10 +1199,11 @@ def phase_serve_rg(dev: str) -> dict:
     scan_launches, flash_launches = rglru_scan.launches, flash_attention.launches
     delta_launches = dirty_block_mask.launches
     peak = torch.cuda.max_memory_allocated()
-    # per prefill: each RG-LRU layer scans in rglru_full and in _rec_state_after
-    if scan_launches != 2 * 2 * n_rec:
+    # per prefill, each RG-LRU layer scans once: the decode cache's h is the
+    # last step of that scan, not a second one (2 prefills, the resume has none)
+    if scan_launches != 2 * n_rec:
         raise AssertionError(f"rglru_scan launched {scan_launches} times, expected "
-                             f"{4 * n_rec} (twice per RG-LRU layer and prefill)")
+                             f"{2 * n_rec} (once per RG-LRU layer and prefill)")
     if flash_launches != 2 * n_attn:
         raise AssertionError(f"flash_attention launched {flash_launches} times, expected "
                              f"{2 * n_attn} (once per attention layer and prefill)")
@@ -1240,6 +1311,8 @@ def main() -> int:
         "bound_ms": rwkv_k["bound_ms"],
         "bound_by": rwkv_k["bound_by"],
         "library_ms": None,
+        "state_max_abs_err": rwkv_k["state_max_abs_err"],
+        "ptxas": rwkv_k["ptxas"],
     }, {
         "name": "rglru_scan",
         "route": "cuda",
@@ -1253,6 +1326,8 @@ def main() -> int:
         "bound_ms": rglru_k["bound_ms"],
         "bound_by": rglru_k["bound_by"],
         "library_ms": None,
+        "exact": rglru_k["exact"],
+        "ptxas": rglru_k["ptxas"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,9 +6,11 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 and the flags, so an edited source rebuilds.  The library is loaded with
 :mod:`ctypes`.  Nothing is built when this module is imported.
 
-No source links the driver library: ``flash_attention.cu`` encodes its TMA
-tensor maps with ``cuTensorMapEncodeTiled``, which it finds at run time
-through the CUDA runtime's driver entry point.  No source includes CUTLASS.
+No source links the driver library: ``flash_attention.cu`` and
+``rwkv6_scan.cu`` encode their TMA tensor maps with
+``cuTensorMapEncodeTiled``, which they find at run time through the CUDA
+runtime's driver entry point.  No source includes CUTLASS.  Each build
+keeps nvcc's ptxas report (``-Xptxas -v``) beside the library.
 """
 from __future__ import annotations
 
@@ -43,8 +45,8 @@ SIGNATURES: Dict[str, Tuple[str, tuple, type]] = {
     "rwkv6_scan": (
         "rwkv6_scan_fwd",
         (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p),
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p),
         ctypes.c_int,
     ),
     "rglru_scan": (
@@ -56,7 +58,8 @@ SIGNATURES: Dict[str, Tuple[str, tuple, type]] = {
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
-#: ptxas report (registers, spills) of each library built by this process
+#: ptxas report (registers, spills) of each library built, by this process
+#: or (read back from the ``.log`` beside the library) by an earlier one
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -82,6 +85,10 @@ def build(*names: str) -> Dict[str, Path]:
     processes at once; returns each library's path."""
     targets = {n: _target(n) for n in names}
     todo = {n: t for n, t in targets.items() if not t.exists()}
+    for n, t in targets.items():
+        log = t.with_suffix(".log")
+        if n not in todo and n not in BUILD_LOGS and log.exists():
+            BUILD_LOGS[n] = log.read_text()
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
@@ -98,6 +105,7 @@ def build(*names: str) -> Dict[str, Path]:
             if proc.returncode != 0:
                 failed.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
             else:
+                todo[n].with_suffix(".log").write_text(out)
                 os.replace(tmp, todo[n])
         if failed:
             raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))

@@ -3,7 +3,10 @@
 A CUDA tensor goes to the hand-written kernel in
 ``kernels/csrc/rglru_scan.cu`` (a and b both float32 or both bfloat16)
 or the call raises; a CPU tensor goes to the plain version in :mod:`.ref`.
-``rglru_scan.launches`` counts kernel launches.
+``rglru_scan.launches`` counts kernel launches.  The kernel feeds its
+chains from a ring filled by the TMA engine where rows of D elements are
+16-byte aligned, and reads directly otherwise; both give the plain
+version's bits.  The last step ``h[:, -1]`` is the decode cache's state.
 
 ``block_t`` and ``block_d`` keep the JAX op's contract: T must be a
 multiple of ``min(block_t, T)`` and D of ``min(block_d, D)``.  They set the

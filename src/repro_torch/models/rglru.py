@@ -9,6 +9,9 @@
 # * rglru_params draws from a torch.Generator (other numbers than JAX's
 #   keys; tests convert JAX's weights with convert.params_from_jax);
 #   rglru_init_state takes a device.
+# * rglru_full(..., return_state=True) also returns the decode cache's
+#   leaves (h's last step, the pre-conv tail) from the values it computes,
+#   which the JAX prefill recomputes (transformer._rec_state_after).
 # * with_logical is gone (a no-op on one card); rglru_specs and
 #   rglru_state_specs are left out (sharding only).
 """RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427).
@@ -93,19 +96,21 @@ def _scan(a: torch.Tensor, gx: torch.Tensor, impl: str) -> torch.Tensor:
     )
 
 
-def rglru_full(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-               impl: str = "reference") -> torch.Tensor:
-    """Full-sequence RG-LRU block.  x: (B, S, d)."""
+def rglru_full(p: Dict, x: torch.Tensor, cfg: ModelConfig, impl: str = "reference",
+               return_state: bool = False):
+    """Full-sequence RG-LRU block.  x: (B, S, d) -> (B, S, d); with
+    ``return_state`` also the decode cache's leaves after the sequence,
+    {"h": the scan's last step (B, dr) f32, "conv": the last cw - 1 steps of
+    the conv's input (B, cw - 1, dr)}."""
     b = x.shape[0]
+    cw = cfg.rec.conv_width
     xr = matmul(x, p["w_in_x"])
     g = matmul(x, p["w_in_g"])
-    prefix = torch.zeros((b, cfg.rec.conv_width - 1, xr.shape[-1]), dtype=xr.dtype,
-                         device=xr.device)
-    xr = _causal_conv(xr, p["conv"], prefix)
-    a, gx = _gates(p, xr)
+    prefix = torch.zeros((b, cw - 1, xr.shape[-1]), dtype=xr.dtype, device=xr.device)
+    a, gx = _gates(p, _causal_conv(xr, p["conv"], prefix))
     h = _scan(a, gx, impl)
-    h = h.to(x.dtype) * activation_fn("gelu")(g)
-    return matmul(h, p["w_out"])
+    out = matmul(h.to(x.dtype) * activation_fn("gelu")(g), p["w_out"])
+    return (out, {"h": h[:, -1], "conv": xr[:, -(cw - 1):]}) if return_state else out
 
 
 def rglru_init_state(cfg: ModelConfig, n_layers: int, batch: int, device) -> Dict:

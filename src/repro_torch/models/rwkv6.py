@@ -11,6 +11,9 @@
 #   rwkv_init_state takes a device.
 # * rwkv_decode_step returns new tensors, as JAX does; the transformer's
 #   decode_step copies them into the cache in place.
+# * rwkv_scan_full(..., return_state=True) also returns the decode cache's
+#   leaves (S from the scan, x_last), which the JAX prefill recomputes
+#   (transformer._rwkv_state_after).
 # * with_logical is gone (a no-op on one card); rwkv_specs and
 #   rwkv_state_specs are left out (sharding only).
 """RWKV-6 "Finch" time-mix block (arXiv:2404.05892), attention-free.
@@ -101,8 +104,11 @@ def _shift_right(x: torch.Tensor) -> torch.Tensor:
 
 def rwkv_scan_full(
     p: Dict, x: torch.Tensor, cfg: ModelConfig, impl: str = "reference",
-) -> torch.Tensor:
-    """Full-sequence RWKV-6.  x: (B, S, d) -> (B, S, d)."""
+    return_state: bool = False,
+):
+    """Full-sequence RWKV-6.  x: (B, S, d) -> (B, S, d); with ``return_state``
+    also the decode cache's leaves after the sequence, {"S": the scan's final
+    state (B, H, dh, dh) f32, "x_last": x[:, -1]}."""
     H, dh = _n_heads(cfg), cfg.rwkv.head_dim
     b, s, d = x.shape
     r, k, v, w, g = _projections(p, x, _shift_right(x), cfg)
@@ -114,12 +120,14 @@ def rwkv_scan_full(
     if impl == "kernel":
         from ..kernels.rwkv6_scan.ops import rwkv6_scan
 
-        y = rwkv6_scan(r, k, v, w, p["bonus_u"])
+        out = rwkv6_scan(r, k, v, w, p["bonus_u"], return_state=return_state)
+        y, S = out if return_state else (out, None)
     elif impl == "reference":
         from ..kernels.rwkv6_scan.ref import rwkv6_reference
 
-        y = rwkv6_reference(*(a.transpose(1, 2) for a in (r, k, v, w)),
-                            p["bonus_u"]).transpose(1, 2)
+        y, S = rwkv6_reference(*(a.transpose(1, 2) for a in (r, k, v, w)), p["bonus_u"],
+                               return_state=True)
+        y = y.transpose(1, 2)
     else:
         raise NotImplementedError(
             f"rwkv impl {impl!r} is not ported to torch yet (ROADMAP, module item 7); "
@@ -129,7 +137,8 @@ def rwkv_scan_full(
     y = y.reshape(b, s, d).to(x.dtype)
     y = rms_norm(y, p["ln_x"], cfg.norm_eps)     # group-norm stand-in
     y = y * activation_fn("silu")(g)
-    return matmul(y, p["w_o"])
+    out = matmul(y, p["w_o"])
+    return (out, {"S": S, "x_last": x[:, -1]}) if return_state else out
 
 
 def rwkv_init_state(cfg: ModelConfig, n_layers: int, batch: int, device) -> Dict:

@@ -14,10 +14,13 @@
 #   new state into the cache's tensors.  The position "t" stays a 0-d int32
 #   tensor on the device.
 # * prefill stacks the per-layer caches over whatever leaves each kind
-#   produces (k, v; h, conv; S, x_last).  _rec_state_after runs its scan
-#   through rglru_scan (the kernel on a CUDA tensor, the plain sequential
-#   version on a CPU one) where JAX runs lax.associative_scan, and takes
-#   its last step.  _rwkv_state_after is the reference's token loop.
+#   produces (k, v; h, conv; S, x_last).  The recurrent leaves come from
+#   the layer's own scan (rglru_full / rwkv_scan_full with return_state:
+#   the kernel's final state, or its plain version's on a CPU tensor or
+#   under impl="reference"), where JAX recomputes them after the layer
+#   (_rec_state_after, a second associative_scan; _rwkv_state_after, a
+#   second lax.scan).  The leaves hold the same values as JAX's, to the
+#   order of f32 sums.
 # * An embedding lookup of an id outside [-V, V) gives NaN rows and a
 #   negative id in range counts from the end, as jnp.take does.
 # * The second norm of a layer reads the residual sum after the mixer
@@ -63,18 +66,12 @@ from .layers import (
     rope_angles,
 )
 from .rglru import (
-    _causal_conv,
-    _gates,
     rglru_decode_step,
     rglru_full,
     rglru_init_state,
     rglru_params,
 )
 from .rwkv6 import (
-    _head_split,
-    _n_heads,
-    _projections,
-    _shift_right,
     rwkv_decode_step,
     rwkv_init_state,
     rwkv_params,
@@ -272,10 +269,10 @@ def prefill(
     cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     patches: Optional[torch.Tensor] = None, impl: str = "reference",
 ) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence pass that also builds the decode cache, as the JAX
-    package does: K/V re-projected per attention layer, recurrent states
-    recomputed by one extra scan per recurrent layer.  Returns (last-token
-    logits (B, V), cache)."""
+    """Full-sequence pass that also builds the decode cache: K/V
+    re-projected per attention layer, as the JAX package does; each
+    recurrent layer's final state taken from the layer's own scan.  Returns
+    (last-token logits (B, V), cache)."""
     x = _embed(cfg, params, tokens, patches)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -296,11 +293,11 @@ def prefill(
                                        window=cfg.attn_window, impl=impl)
                     new_layer_cache[f"pos{pi}"] = _kv_for_cache(cfg, lp["attn"], hin, positions)
                 elif kind == "rec":
-                    y = rglru_full(lp["rec"], hin, cfg, impl=impl)
-                    new_layer_cache[f"pos{pi}"] = _rec_state_after(cfg, lp["rec"], hin)
+                    y, new_layer_cache[f"pos{pi}"] = rglru_full(lp["rec"], hin, cfg, impl=impl,
+                                                                return_state=True)
                 else:
-                    y = rwkv_scan_full(lp["rwkv"], hin, cfg, impl=impl)
-                    new_layer_cache[f"pos{pi}"] = _rwkv_state_after(cfg, lp["rwkv"], hin)
+                    y, new_layer_cache[f"pos{pi}"] = rwkv_scan_full(lp["rwkv"], hin, cfg,
+                                                                    impl=impl, return_state=True)
                 x = _mlp_half(cfg, lp, x, y)
             per_layer.append(new_layer_cache)
         cache[f"group{gi}"] = {
@@ -322,29 +319,3 @@ def _kv_for_cache(cfg: ModelConfig, p: Dict, x: torch.Tensor, positions: torch.T
         v = v[:, -cfg.attn_window:]
     return {"k": k, "v": v}
 
-
-def _rec_state_after(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> Dict:
-    """Final RG-LRU state after the sequence (recomputed, then scanned)."""
-    from ..kernels.rglru_scan.ops import rglru_scan
-
-    b = x.shape[0]
-    xr = matmul(x, p["w_in_x"])
-    prefix = torch.zeros((b, cfg.rec.conv_width - 1, xr.shape[-1]), dtype=xr.dtype,
-                         device=xr.device)
-    a, gx = _gates(p, _causal_conv(xr, p["conv"], prefix))
-    return {"h": rglru_scan(a, gx)[:, -1], "conv": xr[:, -(cfg.rec.conv_width - 1):]}
-
-
-def _rwkv_state_after(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> Dict:
-    """Final RWKV-6 state after the sequence: the reference's token loop
-    over the decays and the outer products."""
-    H, dh = _n_heads(cfg), cfg.rwkv.head_dim
-    b = x.shape[0]
-    _, k, v, w, _ = _projections(p, x, _shift_right(x), cfg)
-    k = _head_split(k, H, dh).float()
-    v = _head_split(v, H, dh).float()
-    w = _head_split(w, H, dh)
-    S = torch.zeros((b, H, dh, dh), dtype=torch.float32, device=x.device)
-    for t in range(x.shape[1]):
-        S = w[:, t][..., :, None] * S + k[:, t][..., :, None] * v[:, t][..., None, :]
-    return {"S": S, "x_last": x[:, -1]}

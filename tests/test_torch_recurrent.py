@@ -172,6 +172,44 @@ def test_prefill_and_decode_f32_match_jax(arch):
     _check_cache(tcache, jcache, arch)
 
 
+@pytest.mark.parametrize("impl", ["reference", "kernel"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_takes_the_state_from_the_scan(arch, impl, monkeypatch):
+    """prefill runs one scan per recurrent layer (the layer's own, which
+    hands its final state to the cache: no second scan), and the cache's
+    recurrent leaves are bit for bit what each layer's scan returns."""
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rglru_scan import ref as rglru_ref
+    from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
+    from repro_torch.kernels.rwkv6_scan import ref as rwkv_ref
+
+    calls = {"scan": 0}
+    states = []
+
+    def counted(fn, keep_state):
+        def wrapper(*a, **kw):
+            calls["scan"] += 1
+            out = fn(*a, **kw)
+            if keep_state:
+                states.append(out[1])
+            return out
+        return wrapper
+
+    rwkv = arch == "rwkv6-3b"
+    mod, ref_mod = (rwkv_ops, rwkv_ref) if rwkv else (rglru_ops, rglru_ref)
+    name = "rwkv6_scan" if rwkv else "rglru_scan"
+    ref_name = "rwkv6_reference" if rwkv else "rglru_reference"
+    target = (mod, name) if impl == "kernel" else (ref_mod, ref_name)
+    monkeypatch.setattr(*target, counted(getattr(*target), keep_state=rwkv))
+    jcfg, tcfg = _cfgs(arch, "float32")
+    _, tp = _weights(jcfg)
+    _, cache = prefill(tcfg, tp, torch.from_numpy(_tokens(jcfg, 2, 32)), impl=impl)
+    n_rec = sum(sum(k in ("rec", "rwkv") for k in pattern) * rep for pattern, rep in tcfg.groups)
+    assert calls["scan"] == n_rec
+    if rwkv:
+        assert torch.equal(cache["group0"]["pos0"]["S"], torch.stack(states))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_updates_the_cache_in_place(arch):
     """decode_step writes the new state into the cache's own tensors, so a

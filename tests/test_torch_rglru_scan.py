@@ -22,6 +22,7 @@ from repro.kernels.rglru_scan.ref import rglru_reference as jax_rglru_reference
 from repro.models import init_params as jax_init_params
 from repro.models import rglru as jax_rglru
 from repro.models import scaled_down as jax_scaled_down
+from repro.models import transformer as jax_transformer
 from repro_torch.configs import get_arch
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.rglru_scan import rglru_scan
@@ -133,6 +134,23 @@ def test_rglru_full_f32_matches_jax(impl):
     for jimpl in ("reference", "pallas"):
         want = jax_rglru.rglru_full(jp, jx, jcfg, impl=jimpl)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("impl", ["reference", "kernel"])
+def test_rglru_full_state_matches_jax_state_after(impl):
+    """return_state leaves the output as it was.  h is JAX's prefill
+    recompute (_rec_state_after, an associative_scan) to 1e-4; conv is the
+    pre-conv projection's tail, equal to JAX's."""
+    jcfg, tcfg, jp, tp = _layer("float32")
+    jx, tx = _x("float32")
+    out, state = rglru.rglru_full(tp, tx, tcfg, impl=impl, return_state=True)
+    assert torch.equal(out, rglru.rglru_full(tp, tx, tcfg, impl=impl))
+    want = jax_transformer._rec_state_after(jcfg, jp, jx)
+    np.testing.assert_allclose(state["h"].numpy(), np.asarray(want["h"]), atol=F32_TOL,
+                               rtol=F32_TOL)
+    cw = tcfg.rec.conv_width
+    assert torch.equal(state["conv"], (tx @ tp["w_in_x"])[:, -(cw - 1):])
+    np.testing.assert_array_equal(state["conv"].numpy(), np.asarray(want["conv"]))
 
 
 def test_rglru_full_bf16_matches_jax():

@@ -21,6 +21,7 @@ from repro.kernels.rwkv6_scan.ref import rwkv6_reference as jax_rwkv6_reference
 from repro.models import init_params as jax_init_params
 from repro.models import rwkv6 as jax_rwkv6
 from repro.models import scaled_down as jax_scaled_down
+from repro.models import transformer as jax_transformer
 from repro_torch.configs import get_arch
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
@@ -100,6 +101,36 @@ def test_op_keeps_the_jax_contract():
         rwkv6_scan(*(x.to("meta") for x in (r, k, v, w, u)))
 
 
+def test_op_returns_the_final_state():
+    """return_state: y unchanged, S (B, H, D, D) the plain loop's final state,
+    held to JAX's oracle run one token further (its last y is r . S_T with
+    r = e_i picking row i of S_T)."""
+    r, k, v, w, u = _inputs(2, 48, 3, 16, seed=5)
+    tr, tk, tv, tw, tu = (torch.from_numpy(x) for x in (r, k, v, w, u))
+    y, S = rwkv6_scan(tr, tk, tv, tw, tu, block_t=16, return_state=True)
+    assert torch.equal(y, rwkv6_scan(tr, tk, tv, tw, tu, block_t=16))
+    assert S.dtype == torch.float32 and tuple(S.shape) == (2, 3, 16, 16)
+    for i in (0, 7, 15):
+        # one more token with k = 0 (no update, no bonus) and r = e_i
+        ext = [np.concatenate([x, np.zeros_like(x[:, :1])], axis=1) for x in (r, k, v, w)]
+        ext[0][:, -1, :, i] = 1.0
+        want = jax_rwkv6_reference(*(jnp.swapaxes(jnp.asarray(x), 1, 2) for x in ext),
+                                   jnp.asarray(u))
+        np.testing.assert_allclose(S[:, :, i, :].numpy(), np.asarray(want)[:, :, -1],
+                                   atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_plain_version_final_state_equals_the_token_loop():
+    """The plain version's final S equals, bit for bit, the token loop the
+    port's prefill used to run after the scan (S <- w S + k^T v)."""
+    r, k, v, w, u = (torch.from_numpy(x) for x in _inputs(2, 40, 3, 32, seed=6))
+    _, S = rwkv6_reference(*(x.transpose(1, 2) for x in (r, k, v, w)), u, return_state=True)
+    want = torch.zeros_like(S)
+    for t in range(r.shape[1]):
+        want = w[:, t][..., :, None] * want + k[:, t][..., :, None] * v[:, t][..., None, :]
+    assert torch.equal(S, want)
+
+
 # ------------------------------------------------------------ the layer
 def _layer(dtype):
     jcfg = dataclasses.replace(jax_scaled_down(jax_get_arch("rwkv6-3b"), width=64), dtype=dtype)
@@ -129,6 +160,21 @@ def test_rwkv_scan_full_f32_matches_jax(impl):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL, rtol=F32_TOL)
     want_pallas = jax_rwkv6.rwkv_scan_full(jp, jx, jcfg, impl="pallas")
     np.testing.assert_allclose(got.numpy(), np.asarray(want_pallas), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("impl", ["reference", "kernel"])
+def test_rwkv_scan_full_state_matches_jax_state_after(impl):
+    """return_state leaves the output as it was; the state is JAX's
+    prefill recompute (_rwkv_state_after) to 1e-4, x_last the input's last
+    token."""
+    jcfg, tcfg, jp, tp = _layer("float32")
+    jx, tx = _x("float32")
+    out, state = rwkv6.rwkv_scan_full(tp, tx, tcfg, impl=impl, return_state=True)
+    assert torch.equal(out, rwkv6.rwkv_scan_full(tp, tx, tcfg, impl=impl))
+    want = jax_transformer._rwkv_state_after(jcfg, jp, jx)
+    np.testing.assert_allclose(state["S"].numpy(), np.asarray(want["S"]), atol=F32_TOL,
+                               rtol=F32_TOL)
+    np.testing.assert_array_equal(state["x_last"].numpy(), np.asarray(want["x_last"]))
 
 
 def test_rwkv_scan_full_bf16_matches_jax():
