@@ -56,7 +56,22 @@ Phases, in order; any failure ends the run with a nonzero exit:
    a reduced depth of 5 layers; the prefill runs ``rglru_scan`` once per
    RG-LRU layer (the cache's state is the scan's last step) and
    ``flash_attention`` once per attention layer.  Both prefills are
-   profiled once: wall time, and the scan kernels' device time within it.
+   profiled once: wall time, and the scan kernels' device time within it;
+11. the HPC suite's heat, cg, pagerank and kmeans and the lm-train app
+   characterized on the card: each HPC app's crash campaign reproduces its
+   pinned golden and ``run_workflow`` gives the JAX package's plan; lm-train
+   (the port's own generator weights) gives the same campaign and plan on
+   the card as on the CPU; for each app, the first iteration at which the
+   card's golden run leaves the CPU's bits (information);
+12. each of the five deployed at one GPU's size as phase 4 deploys SOR (16
+   iterations under ``EasyCrashManager``, every flush through
+   ``delta_snapshot`` with its image equal to the live bytes, a crash, a
+   restore equal to the last flushed bytes, 4 more iterations): cg and heat
+   at grid 8192, pagerank at 32,768 nodes (4 GiB of links), kmeans at
+   4,194,304 points, lm-train at width 2048 (about 110 M parameters).  cg,
+   pagerank and kmeans flush their plan's objects; heat and lm-train, whose
+   plans flush nothing, flush the selected object at the end of every
+   iteration: the paper's loop-end baseline (Fig 2a).
 
 The second line from the end is a JSON object with one entry per kernel,
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -97,7 +112,7 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core.manager import flatten_state  # noqa: E402
 from repro_torch.hpc.common import laplacian_apply  # noqa: E402
 from repro_torch.hpc.sor import SORApp, _rb_sor  # noqa: E402
-from repro_torch.hpc.suite import ci_app, default_cache  # noqa: E402
+from repro_torch.hpc.suite import ci_app, default_cache, get_app  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.delta_snapshot import dirty_block_mask  # noqa: E402
 from repro_torch.kernels.delta_snapshot.ref import dirty_block_mask_reference  # noqa: E402
@@ -129,6 +144,28 @@ GOLDENS = os.path.join(ROOT, "tests", "golden", "campaign_goldens.json")
 JAX_SOR_PLAN = (("u",), {1: 4, 2: 1})
 #: the same for ci_app("decode")
 JAX_DECODE_PLAN = (("tokens",), {1: 1})
+#: the same for the HPC apps of the slice after sor
+JAX_HPC_PLANS = {
+    "heat": (("u",), {}),
+    "cg": (("q",), {2: 1, 3: 1}),
+    "pagerank": (("rank",), {0: 1, 1: 1, 2: 1}),
+    "kmeans": (("centroids",), {0: 1, 1: 1}),
+}
+#: the deployments at one GPU's size, in the order they run: cg and heat at
+#: SOR's grid (each vector 256 MiB); pagerank's dense links at 4 GiB of f32;
+#: kmeans' points 128 MiB (its (n, k) distance terms 192 MiB each); lm-train
+#: at StableLM-2-1.6B's d_model (about 110 M parameters, 440 MB per vector),
+#: with lr 6e-4, GPT-3's for its 125M model (Brown et al. 2020, Table 2.1):
+#: the app's default 2e-2, tuned at width 64, diverges at this width (the
+#: eval loss climbs from 6.06 to over 20 in five steps and the gradients
+#: turn NaN within eight, on the CPU as on the card)
+DEPLOY_APPS = (
+    ("cg", dict(grid=DEPLOY_GRID)),
+    ("pagerank", dict(n_nodes=32768)),
+    ("kmeans", dict(n_points=4194304)),
+    ("heat", dict(grid=DEPLOY_GRID)),
+    ("lm-train", dict(width=2048, lr=6e-4)),
+)
 #: the serving path: StableLM-2-1.6B unscaled, 4 prompts of 1024 tokens
 SERVE_ARCH = "stablelm-1.6b"
 SERVE_PROMPTS, SERVE_PROMPT_LEN, SERVE_STEPS, SERVE_FLUSH_EVERY = 4, 1024, 64, 16
@@ -300,28 +337,42 @@ def time_kernel(dev: str) -> dict:
 
 
 # ------------------------------------------------------------ 3. characterize
-def phase_characterize(dev: str) -> PersistPlan:
+def _campaign_entry(app) -> dict:
+    """The pinned campaign (8 tests, seed 123, no plan) as the goldens file
+    keeps it."""
     with open(GOLDENS) as f:
-        goldens = json.load(f)
-    cfg = goldens["config"]
-    want = goldens["apps"]["sor"]
-    app = ci_app("sor", device=dev)
-    t0 = time.perf_counter()
+        cfg = json.load(f)["config"]
     camp = CrashTester(app, PersistPlan.none(), default_cache(app),
                        seed=cfg["seed"]).run_campaign(cfg["n_tests"])
     counts = {c: 0 for c in ("S1", "S2", "S3", "S4")}
     for r in camp.records:
         counts[r.outcome] += 1
-    got = {"counts": counts, "golden_iters": camp.golden_iters,
-           "crash_iters": [r.iter_idx for r in camp.records]}
-    log(f"[characterize] sor campaign on {dev}: {got} in {time.perf_counter() - t0:.1f} s")
-    if got != want:
-        raise AssertionError(f"sor campaign differs from its golden {want}")
+    return {"counts": counts, "golden_iters": camp.golden_iters,
+            "crash_iters": [r.iter_idx for r in camp.records]}
 
+
+def _check_pin(name: str, app, tag: str = "characterize") -> None:
+    with open(GOLDENS) as f:
+        want = json.load(f)["apps"][name]
     t0 = time.perf_counter()
-    wf = run_workflow(app, WorkflowConfig(n_tests=24, cache=default_cache(app), seed=0))
-    plan = wf.plan
-    log(f"[characterize] run_workflow plan: {plan} in {time.perf_counter() - t0:.1f} s")
+    got = _campaign_entry(app)
+    log(f"[{tag}] {name} campaign on {app.device}: {got} in {time.perf_counter() - t0:.1f} s")
+    if got != want:
+        raise AssertionError(f"{name} campaign differs from its golden {want}")
+
+
+def _workflow_plan(name: str, app, tag: str = "characterize") -> PersistPlan:
+    t0 = time.perf_counter()
+    plan = run_workflow(app, WorkflowConfig(n_tests=24, cache=default_cache(app), seed=0)).plan
+    log(f"[{tag}] {name} run_workflow plan on {app.device}: {plan} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return plan
+
+
+def phase_characterize(dev: str) -> PersistPlan:
+    app = ci_app("sor", device=dev)
+    _check_pin("sor", app)
+    plan = _workflow_plan("sor", app)
     if (plan.objects, plan.region_freq) != JAX_SOR_PLAN:
         raise AssertionError(f"plan differs from the JAX plan {JAX_SOR_PLAN}")
 
@@ -352,13 +403,29 @@ def _same_bytes(img: np.ndarray, live: torch.Tensor) -> bool:
             and torch.equal(dev_img.view(torch.uint8), live.view(torch.uint8)))
 
 
-def phase_deploy(dev: str, plan: PersistPlan) -> dict:
-    app = SORApp(grid=DEPLOY_GRID, device=dev)
-    g = app.grid
+def _u8(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1).view(torch.uint8)
+
+
+def deploy(dev: str, name: str, app, plan: PersistPlan, label: str,
+           restore_verify=None, extra=None) -> dict:
+    """The app under ``EasyCrashManager`` with ``plan``'s objects and delta
+    flushes: DEPLOY_ITERS iterations, each flushed (the first writes all,
+    the others take their masks from ``delta_snapshot``; every image must
+    equal the live bytes, and every flush write the blocks the plain mask
+    names), a crash, a restore from the arena (its objects equal to the last
+    flushed bytes), AFTER_RESTORE_ITERS more iterations, each flushed
+    through the kernel against the shadow the restore left.
+
+    ``restore_verify(state, step)`` is the restore's acceptance hook (None
+    accepts); ``extra`` is (name, fn(state) -> float, check(values) -> bool),
+    a metric recorded at the restore and after each later iteration, whose
+    values must pass the check."""
     t0 = time.perf_counter()
     state = state_to_torch(app.init(0), dev)
-    log(f"[deploy] SOR grid {g}: u {state['u'].numel() * 4} bytes on {dev}, "
-        f"init {time.perf_counter() - t0:.1f} s")
+    obj_bytes = {n: state[n].numel() * state[n].element_size() for n in plan.objects}
+    log(f"[deploy {name}] {label}: flushes {obj_bytes} bytes on {dev} every "
+        f"{min(plan.region_freq.values())} iteration(s); init {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     arena = NVMArena(BLOCK_BYTES)
@@ -368,96 +435,126 @@ def phase_deploy(dev: str, plan: PersistPlan) -> dict:
 
     iter_s, flush_s = [], []
     steady = None  # manager stats after the first (full-write) flush
-    prev_u = None
+    prev = None
     for step in range(1, DEPLOY_ITERS + 1):
         t0 = time.perf_counter()
         state = app.run_iteration(state)
         torch.cuda.synchronize()
         iter_s.append(time.perf_counter() - t0)
         expect = None
-        if prev_u is not None:  # spot check: the plain version's count of dirty blocks
-            ref = dirty_block_mask_reference(state["u"].view(torch.uint8),
-                                             prev_u.view(torch.uint8), BLOCK_BYTES)
-            expect = int(ref.sum()) + 1  # + the __step__ leaf's one block
+        if prev is not None:  # the plain version's count of dirty blocks
+            expect = 1 + sum(  # + the __step__ leaf's one block
+                int(dirty_block_mask_reference(_u8(state[n]), _u8(prev[n]), BLOCK_BYTES).sum())
+                for n in plan.objects)
         before = mgr.stats.blocks_written
         t0 = time.perf_counter()
         if not mgr.maybe_flush(step, state):
-            raise AssertionError(f"step {step}: the plan's cadence flushes every step")
+            raise AssertionError(f"{name} step {step}: the plan's cadence flushes every step")
         flush_s.append(time.perf_counter() - t0)
         written = mgr.stats.blocks_written - before
         if expect is not None and written != expect:
-            raise AssertionError(f"step {step}: flush wrote {written} blocks, "
+            raise AssertionError(f"{name} step {step}: flush wrote {written} blocks, "
                                  f"the plain mask says {expect}")
-        for name in plan.objects:
-            if not _same_bytes(arena.peek(name), state[name]):
-                raise AssertionError(f"step {step}: arena image of {name!r} != live bytes")
+        for n in plan.objects:
+            if not _same_bytes(arena.peek(n), state[n]):
+                raise AssertionError(f"{name} step {step}: arena image of {n!r} != live bytes")
         if int(arena.get("__step__")) != step:
-            raise AssertionError(f"step {step}: arena step is {int(arena.get('__step__'))}")
+            raise AssertionError(f"{name} step {step}: arena step is "
+                                 f"{int(arena.get('__step__'))}")
         if step == 1:
             steady = dict(vars(mgr.stats))
-        prev_u = state["u"].clone()
+        prev = {n: state[n].clone() for n in plan.objects}
     peak = torch.cuda.max_memory_allocated()
     n_steady = DEPLOY_ITERS - 1
     st = vars(mgr.stats)
     split = {k: (st[k] - steady[k]) / n_steady * 1e3
              for k in ("mask_seconds", "copy_seconds", "arena_seconds")}
     out = {
+        "plan": label,
+        "objects": list(plan.objects),
+        "object_bytes": obj_bytes,
         "ms_per_iter": float(np.mean(iter_s)) * 1e3,
+        "ms_first_iter": iter_s[0] * 1e3,
+        "ms_per_iter_after_first": float(np.mean(iter_s[1:])) * 1e3,
         "ms_first_flush": flush_s[0] * 1e3,
         "ms_per_flush": float(np.mean(flush_s[1:])) * 1e3,
         "flush_split_ms": split,
         "bytes_written": mgr.stats.bytes_written,
+        "bytes_first_flush": steady["bytes_written"],
         "bytes_per_flush": (st["bytes_written"] - steady["bytes_written"]) / n_steady,
         "peak_device_bytes": peak,
     }
-    log(f"[deploy] {DEPLOY_ITERS} iterations: {out['ms_per_iter']:.2f} ms/iteration, "
+    log(f"[deploy {name}] {DEPLOY_ITERS} iterations: {out['ms_per_iter']:.2f} ms/iteration "
+        f"(the first {out['ms_first_iter']:.2f}, the rest {out['ms_per_iter_after_first']:.2f}), "
         f"first flush (full write) {out['ms_first_flush']:.1f} ms, then "
         f"{out['ms_per_flush']:.1f} ms/flush (mask {split['mask_seconds']:.1f}, "
         f"device-to-host {split['copy_seconds']:.1f}, arena {split['arena_seconds']:.1f} ms)")
-    log(f"[deploy] bytes written {out['bytes_written']} "
+    log(f"[deploy {name}] bytes written {out['bytes_written']} "
         f"({out['bytes_per_flush']:.0f} per delta flush), peak device memory {peak} bytes")
 
     # crash: the live state is gone; a new manager restores from the arena
-    last_step, last_u = DEPLOY_ITERS, prev_u
     del state
     mgr.close()
     fresh = state_to_torch(app.init(0), dev)
-    e_fresh = _energy(fresh["u"], fresh["b"], g)
     mgr = EasyCrashManager(arena, policy)
-    restored, step, source = mgr.restore(
-        fresh, verify=lambda s, k: _energy(s["u"], s["b"], g) < e_fresh
-    )
-    if source != "easycrash" or step != last_step:
-        raise AssertionError(f"restore gave source={source!r} step={step}")
-    if restored["u"].device != last_u.device or not torch.equal(
-            restored["u"].view(torch.uint8), last_u.view(torch.uint8)):
-        raise AssertionError("restored u differs from the last flushed bytes")
-    energies = [_energy(restored["u"], restored["b"], g)]
-    residuals = [app.progress(restored)]
+    restored, step, source = mgr.restore(fresh, verify=restore_verify)
+    del fresh
+    if source != "easycrash" or step != DEPLOY_ITERS:
+        raise AssertionError(f"{name}: restore gave source={source!r} step={step}")
+    for n in plan.objects:
+        if restored[n].device != prev[n].device or not torch.equal(_u8(restored[n]),
+                                                                    _u8(prev[n])):
+            raise AssertionError(f"{name}: restored {n!r} differs from the last flushed bytes")
+    progress = [app.progress(restored)]
+    extras = [extra[1](restored)] if extra else []
     state = restored
     for k in range(1, AFTER_RESTORE_ITERS + 1):
         state = app.run_iteration(state)
-        energies.append(_energy(state["u"], state["b"], g))
-        residuals.append(app.progress(state))
+        progress.append(app.progress(state))
+        if extra:
+            extras.append(extra[1](state))
         # the restarted run flushes on: the restore left the manager a shadow
-        # of u on the card, so this delta mask comes from the kernel as well
+        # of each object on the card, so this delta mask comes from the kernel
         launches = dirty_block_mask.launches
-        if not mgr.maybe_flush(last_step + k, state):
-            raise AssertionError(f"step {last_step + k}: no flush after the restore")
+        if not mgr.maybe_flush(DEPLOY_ITERS + k, state):
+            raise AssertionError(f"{name} step {DEPLOY_ITERS + k}: no flush after the restore")
         if dirty_block_mask.launches != launches + len(plan.objects):
-            raise AssertionError(f"step {last_step + k}: the flush after the restore "
-                                 f"did not launch delta_snapshot")
-        for name in plan.objects:
-            if not _same_bytes(arena.peek(name), state[name]):
-                raise AssertionError(f"step {last_step + k}: arena image of {name!r} "
+            raise AssertionError(f"{name} step {DEPLOY_ITERS + k}: the flush after the "
+                                 f"restore did not launch delta_snapshot")
+        for n in plan.objects:
+            if not _same_bytes(arena.peek(n), state[n]):
+                raise AssertionError(f"{name} step {DEPLOY_ITERS + k}: arena image of {n!r} "
                                      f"!= live bytes")
-    if not all(b < a for a, b in zip(energies, energies[1:])):
-        raise AssertionError(f"energy did not fall after the restore: {energies}")
-    log(f"[deploy] restored step {step} from the arena (source={source}); "
-        f"{AFTER_RESTORE_ITERS} more iterations, each flushed through the kernel: "
-        f"energy {energies}, relative residual {residuals}")
+    if not all(np.isfinite(progress)):
+        raise AssertionError(f"{name}: the progress metric after the restore is not finite: "
+                             f"{progress}")
+    if extra and not extra[2](extras):
+        raise AssertionError(f"{name}: {extra[0]} after the restore failed its check: {extras}")
+    out["progress_after_restore"] = progress
+    if extra:
+        out[f"{extra[0]}_after_restore"] = extras
+    log(f"[deploy {name}] restored step {step} from the arena (source={source}), objects "
+        f"equal to the last flushed bytes; {AFTER_RESTORE_ITERS} more iterations, each flushed "
+        f"through the kernel: progress {progress}"
+        + (f", {extra[0]} {extras}" if extra else ""))
     mgr.close()
+    del state, restored, prev
+    torch.cuda.empty_cache()
     return out
+
+
+def phase_deploy(dev: str, plan: PersistPlan) -> dict:
+    app = SORApp(grid=DEPLOY_GRID, device=dev)
+    g = app.grid
+    fresh = app.init(0)
+    e_fresh = _energy(torch.from_numpy(fresh["u"]).to(dev), torch.from_numpy(fresh["b"]).to(dev), g)
+
+    def energy(s):
+        return _energy(s["u"], s["b"], g)
+
+    return deploy(dev, "sor", app, plan, "run_workflow's plan",
+                  restore_verify=lambda s, k: energy(s) < e_fresh,
+                  extra=("energy", energy, lambda v: all(b < a for a, b in zip(v, v[1:]))))
 
 
 # --------------------------------------------------------- 5. flash attention
@@ -614,25 +711,9 @@ def phase_flash(dev: str) -> dict:
 
 # ----------------------------------------------------- 6. decode characterize
 def phase_decode_characterize(dev: str) -> None:
-    with open(GOLDENS) as f:
-        goldens = json.load(f)
-    cfg = goldens["config"]
-    want = goldens["apps"]["decode"]
     app = ci_app("decode", device=dev)
-    t0 = time.perf_counter()
-    camp = CrashTester(app, PersistPlan.none(), default_cache(app),
-                       seed=cfg["seed"]).run_campaign(cfg["n_tests"])
-    counts = {c: 0 for c in ("S1", "S2", "S3", "S4")}
-    for r in camp.records:
-        counts[r.outcome] += 1
-    got = {"counts": counts, "golden_iters": camp.golden_iters,
-           "crash_iters": [r.iter_idx for r in camp.records]}
-    log(f"[decode] decode campaign on {dev}: {got} in {time.perf_counter() - t0:.1f} s")
-    if got != want:
-        raise AssertionError(f"decode campaign differs from its golden {want}")
-    t0 = time.perf_counter()
-    plan = run_workflow(app, WorkflowConfig(n_tests=24, cache=default_cache(app), seed=0)).plan
-    log(f"[decode] run_workflow plan: {plan} in {time.perf_counter() - t0:.1f} s")
+    _check_pin("decode", app, tag="decode")
+    plan = _workflow_plan("decode", app, tag="decode")
     if (plan.objects, plan.region_freq) != JAX_DECODE_PLAN:
         raise AssertionError(f"plan differs from the JAX plan {JAX_DECODE_PLAN}")
 
@@ -1220,6 +1301,93 @@ def phase_serve_rg(dev: str) -> dict:
         "flash_launches": flash_launches, "delta_launches": delta_launches})
 
 
+# ------------------------------- 11. the suite's apps and lm-train, characterized
+def _golden_divergence(name: str, dev: str) -> str:
+    """Information: the CI app's golden run on the card and on the CPU in
+    step; the first iteration after which a state leaf differs in its bits,
+    and the largest difference of a float leaf at the end."""
+    apps = {d: ci_app(name, device=d) for d in ("cpu", dev)}
+    states = {d: apps[d].init(0) for d in apps}
+    first, n = None, 0
+    while n < apps["cpu"].n_iters:
+        states = {d: apps[d].run_iteration(states[d]) for d in apps}
+        n += 1
+        if first is None and any(states["cpu"][k].tobytes() != states[dev][k].tobytes()
+                                 for k in states["cpu"]):
+            first = n
+        if apps["cpu"].converged(states["cpu"], n):
+            break
+    diff = max((float(np.abs(states["cpu"][k] - states[dev][k]).max())
+                for k in states["cpu"] if states["cpu"][k].dtype.kind == "f"), default=0.0)
+    return (f"the card's golden run is the CPU's bit for bit through {n} iterations"
+            if first is None else
+            f"the card's golden run leaves the CPU's bits after iteration {first} of {n}; "
+            f"max |diff| at the end {diff:.3e}")
+
+
+def phase_characterize_suite(dev: str) -> dict:
+    """heat, cg, pagerank, kmeans: the pin and the JAX plan on the card."""
+    plans = {}
+    for name, want in JAX_HPC_PLANS.items():
+        app = ci_app(name, device=dev)
+        _check_pin(name, app, tag="suite")
+        plan = _workflow_plan(name, app, tag="suite")
+        if (plan.objects, plan.region_freq) != want:
+            raise AssertionError(f"{name}: plan differs from the JAX plan {want}")
+        log(f"[suite] {name}: {_golden_divergence(name, dev)}")
+        plans[name] = plan
+    return plans
+
+
+def phase_characterize_lm_train(dev: str) -> PersistPlan:
+    """lm-train with the port's generator weights on the CPU and on the card:
+    the same class counts, golden_iters, crash_iters and plan."""
+    got = {}
+    for d in ("cpu", dev):
+        app = ci_app("lm-train", device=d)
+        t0 = time.perf_counter()
+        entry = _campaign_entry(app)
+        log(f"[lm-train] campaign on {d}: {entry} in {time.perf_counter() - t0:.1f} s")
+        plan = _workflow_plan("lm-train", app, tag="lm-train")
+        got[d] = (entry, (plan.objects, plan.region_freq))
+    if got["cpu"] != got[dev]:
+        raise AssertionError(f"lm-train on the card {got[dev]} differs from the CPU's "
+                             f"{got['cpu']}")
+    log(f"[lm-train] {_golden_divergence('lm-train', dev)}")
+    return plan
+
+
+# ------------------------------------------------ 12. the suite's deployments
+def phase_deploy_suite(dev: str, plans: dict) -> dict:
+    """Each app of DEPLOY_APPS at its size, with the launches of
+    ``delta_snapshot`` counted per deployment: one per object and delta
+    flush."""
+    out = {}
+    for name, size in DEPLOY_APPS:
+        app = get_app(name, device=dev, **size)
+        plan = plans[name]
+        if plan.region_freq:
+            label = "run_workflow's plan"
+        else:
+            plan = PersistPlan.at_loop_end(plan.objects, app)
+            label = ("loop-end baseline (paper Fig 2a): run_workflow's plan flushes nothing, "
+                     "so the selected objects at the end of every iteration")
+        dirty_block_mask.launches = 0
+        res = deploy(dev, name, app, plan, label)
+        launches = dirty_block_mask.launches
+        want = (DEPLOY_ITERS - 1 + AFTER_RESTORE_ITERS) * len(plan.objects)
+        if launches != want:
+            raise AssertionError(f"{name}: delta_snapshot launched {launches} times, expected "
+                                 f"one per object and delta flush ({want})")
+        res["delta_launches"] = launches
+        res["size"] = size
+        log(f"[deploy {name}] summary {json.dumps(res)}")
+        out[name] = res
+        del app
+        torch.cuda.empty_cache()
+    return out
+
+
 def _tree_map(tree, fn):
     return {k: _tree_map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
@@ -1264,6 +1432,14 @@ def main() -> int:
     rg = phase_serve_rg(dev)
     log(f"[rg] summary {json.dumps(rg)}")
 
+    t0 = time.perf_counter()
+    plans = phase_characterize_suite(dev)
+    plans["lm-train"] = phase_characterize_lm_train(dev)
+    t1 = time.perf_counter()
+    suite = phase_deploy_suite(dev, plans)
+    log(f"[suite] characterization {t1 - t0:.1f} s, deployments "
+        f"{time.perf_counter() - t1:.1f} s")
+
     log(gpu)
     print(json.dumps({"kernels": [{
         "name": "delta_snapshot",
@@ -1271,10 +1447,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/delta_snapshot.cu",
         "replaces": "src/repro/kernels/delta_snapshot/kernel.py:26",
         "launches": launches + served["delta_launches"] + rwkv["delta_launches"]
-        + rg["delta_launches"],
+        + rg["delta_launches"] + sum(r["delta_launches"] for r in suite.values()),
         "launches_by_path": {"sor_deploy": launches, "serve_stablelm": served["delta_launches"],
                              "serve_rwkv6": rwkv["delta_launches"],
-                             "serve_recurrentgemma": rg["delta_launches"]},
+                             "serve_recurrentgemma": rg["delta_launches"],
+                             **{f"{name.replace('-', '_')}_deploy": r["delta_launches"]
+                                for name, r in suite.items()}},
         "max_abs_err": max_err,
         "exact": max_err == 0,
         "ms": kern["ms"],

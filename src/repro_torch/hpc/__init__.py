@@ -1,14 +1,23 @@
 """Region-structured HPC applications, ported to torch.
 
-``sor`` is the only app ported so far; :func:`get_app` names the ROADMAP item
-for every other app of the JAX suite.
+Ported so far: sor, heat, cg, pagerank and kmeans (and, through the suite
+registry, the model stack's lm-train and decode); :func:`get_app` names the
+ROADMAP item of every other app of the JAX suite.
 """
 from typing import Dict
 
 from ..core.regions import IterativeApp
+from .cg import CGApp
+from .heat import HeatApp
+from .kmeans import KMeansApp
+from .pagerank import PageRankApp
 from .sor import SORApp
 
 _REGISTRY: Dict[str, type] = {
+    "cg": CGApp,
+    "heat": HeatApp,
+    "kmeans": KMeansApp,
+    "pagerank": PageRankApp,
     "sor": SORApp,
 }
 
@@ -27,4 +36,4 @@ def get_app(name: str, **kwargs) -> IterativeApp:
     return suite.get_app(name, **kwargs)
 
 
-__all__ = ["get_app", "app_names", "SORApp"]
+__all__ = ["get_app", "app_names", "CGApp", "HeatApp", "KMeansApp", "PageRankApp", "SORApp"]

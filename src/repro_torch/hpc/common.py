@@ -1,8 +1,9 @@
 """Shared numerics for the HPC app suite, ported to torch.
 
-Only what ``sor`` needs so far: the matrix-free Laplacian and the relative
-residual.  ``jacobi_sweep``, ``restrict`` and ``prolong`` of
-``repro/hpc/common.py`` come with heat and mg.
+The matrix-free Laplacian and the relative residual of
+``repro/hpc/common.py``, and :func:`tree_sum`, the port's one reduction
+order for the suite's float32 sums.  ``jacobi_sweep``, ``restrict`` and
+``prolong`` come with mg.
 """
 from __future__ import annotations
 
@@ -27,11 +28,36 @@ def laplacian_apply(x_flat: torch.Tensor, g: int) -> torch.Tensor:
     return y.reshape(x_flat.shape)
 
 
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed order: zero-padded to a power of
+    two, then halves added elementwise until one element is left.
+
+    XLA's reduction order has no torch counterpart, and a torch sum's order
+    may change with the shape, the alignment or the device.  Built from
+    elementwise adds only, this sum is the same bits on the CPU and the
+    card, and a lane of an (L, n) stack sums exactly as the same row alone,
+    which is what the batched hooks need.  Leading dimensions are lanes;
+    returns a tensor of the leading shape.
+    """
+    n = x.shape[-1]
+    width = 1 << max(0, n - 1).bit_length()
+    if width != n:
+        x = F.pad(x, (0, width - n))
+    while width > 1:
+        width //= 2
+        x = x[..., :width] + x[..., width:]
+    return x[..., 0]
+
+
 def as_tensor(x, device: str) -> torch.Tensor:
-    """``x`` as a tensor on ``device``; a tensor passes through as it is."""
+    """``x`` as a tensor on ``device``; a tensor passes through as it is.
+
+    An array is copied into torch's own allocation (on the CPU aligned to
+    64 bytes), so a BLAS call never sees an input at another alignment from
+    one call to the next."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+    return torch.from_numpy(np.array(x, copy=True)).to(device, copy=True)
 
 
 def as_numpy(x) -> np.ndarray:

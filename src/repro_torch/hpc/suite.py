@@ -1,6 +1,7 @@
-# Port of repro/hpc/suite.py: the registry holds the ported apps only (sor
-# and the model stack's decode), and get_app of an app of the JAX suite that
-# is not ported yet raises, naming its ROADMAP item.  CI_SIZES, BENCH_SIZES,
+# Port of repro/hpc/suite.py: the registry holds the ported apps only (the
+# HPC apps of hpc/__init__.py, and the model stack's lm-train and decode,
+# registered lazily), and get_app of an app of the JAX suite that is not
+# ported yet raises, naming its ROADMAP item.  CI_SIZES, BENCH_SIZES,
 # FAULT_SWEEP_APPS and the cache sizing are copied unchanged.
 """Suite-level helpers: canonical cache sizing + CI-sized app instances.
 
@@ -25,13 +26,8 @@ _APP_FACTORIES: Dict[str, Callable[..., IterativeApp]] = dict(_HPC_REGISTRY)
 #: apps of the JAX package's registry that the port does not have yet, with
 #: the ROADMAP item that ports each
 NOT_PORTED: Dict[str, str] = {
-    "pagerank": "module item 4.1",
-    "heat": "module item 4.2",
-    "cg": "module item 4.3",
-    "kmeans": "module item 4.4",
     "montecarlo": "module item 4.5",
     "mg": "module item 4.6",
-    "lm-train": "module item 6",
 }
 
 
@@ -46,14 +42,21 @@ def register_app(name: str, factory: Callable[..., IterativeApp]) -> None:
     _APP_FACTORIES[str(name)] = factory
 
 
-# the model stack's decode app registers lazily, so importing the suite never
-# pulls in the transformer
+# the model stack's apps register lazily, so importing the suite never pulls
+# in the transformer
+def _lm_train_factory(**params) -> IterativeApp:
+    from ..models.train_app import LMTrainApp
+
+    return LMTrainApp(**params)
+
+
 def _decode_factory(**params) -> IterativeApp:
     from ..models.serve_app import DecodeApp
 
     return DecodeApp(**params)
 
 
+register_app("lm-train", _lm_train_factory)
 register_app("decode", _decode_factory)
 
 

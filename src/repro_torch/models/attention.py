@@ -2,8 +2,8 @@
 # * impl="kernel" is the counterpart of JAX's impl="pallas": it routes the
 #   full-sequence path to the hand-written CUDA flash-attention kernel
 #   (kernels/flash_attention; its plain version on a CPU tensor).
-#   impl="chunked" (_attention_chunked) is not ported yet and raises
-#   (ROADMAP, module item 6).
+#   impl="chunked" (_attention_chunked) is plain torch, as in JAX, where it
+#   runs outside Pallas: lax.scan over the kv chunks is a Python loop.
 # * attention_decode writes the new token's K/V into the cache tensors in
 #   place (JAX returns updated copies; a copy of a 428 MB cache per layer
 #   and token is what in place saves) and returns the same tensors.  The
@@ -109,6 +109,9 @@ def attention_full(
 
         out = flash_attention(q, _repeat_kv(k, hq // hkv), _repeat_kv(v, hq // hkv),
                               causal=True, window=window)
+    elif impl == "chunked":
+        out = _attention_chunked(q, _repeat_kv(k, hq // hkv), _repeat_kv(v, hq // hkv),
+                                 window=window)
     elif impl == "reference":
         k = _repeat_kv(k, hq // hkv)
         v = _repeat_kv(v, hq // hkv)
@@ -117,13 +120,51 @@ def attention_full(
         probs = _softmax(scores + bias).to(q.dtype)
         out = einsum("bhqk,bkhd->bqhd", probs, v)
     else:
-        raise NotImplementedError(
-            f"attention impl {impl!r} is not ported to torch yet (ROADMAP, module item 6); "
-            "use 'reference' or 'kernel'"
-        )
+        raise ValueError(f"unknown attention impl {impl!r}; use 'reference', 'chunked' "
+                         "or 'kernel'")
 
     out = out.reshape(x.shape[0], x.shape[1], hq * dh)
     return matmul(out, p["wo"])
+
+
+def _attention_chunked(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    *, window: Optional[int] = None, chunk: int = 512,
+) -> torch.Tensor:
+    """Flash-style causal attention as a loop over KV chunks.
+
+    Never materializes the (S x S) score matrix — per step only a
+    (B, H, S, chunk) tile exists.  The same online-softmax recurrence as the
+    flash-attention kernel, in f32: ``-1e30`` masking, ``p`` zeroed where
+    masked, ``l`` clamped at 1e-30.  q, k, v: (B, S, H, D).
+    """
+    b, s, h, d = q.shape
+    c = min(chunk, s)
+    assert s % c == 0, (s, c)
+    scale = d ** -0.5
+    qf = q.float() * scale
+    kc = k.float().reshape(b, s // c, c, h, d)
+    vc = v.float().reshape(b, s // c, c, h, d)
+    qpos = torch.arange(s, device=q.device)
+    m = torch.full((b, h, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    for ik in range(s // c):
+        kpos = ik * c + torch.arange(c, device=q.device)
+        sc = torch.einsum("bqhd,bkhd->bhqk", qf, kc[:, ik])
+        ok = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            ok &= kpos[None, :] > qpos[:, None] - window
+        sc = torch.where(ok[None, None], sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        p = torch.where(ok[None, None], p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vc[:, ik])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,

@@ -1,12 +1,12 @@
 # Port of repro/models/transformer.py: the dense path and the layer kinds
 # "rec" (RG-LRU, RecurrentGemma) and "rwkv" (RWKV-6).  What differs:
-# * MoE layers raise NotImplementedError (ROADMAP, module item 7);
-#   loss_and_aux, param_specs and cache_specs are left out (training and
-#   sharding; module items 6 and 10).
+# * MoE layers raise NotImplementedError (ROADMAP, module item 7), so the
+#   aux loss is 0 on every path the port has; param_specs and cache_specs
+#   are left out (sharding; module item 10).
 # * lax.scan over stacked layer parameters is a Python loop over index i of
 #   the same stacked (n, ...) tensors, so a JAX parameter tree converts leaf
-#   for leaf (convert.params_from_jax).  remat has no counterpart (no
-#   gradients here).
+#   for leaf (convert.params_from_jax).  remat has no counterpart: autograd
+#   keeps the activations (the models it trains here are small).
 # * init_params and init_cache take a torch.Generator / a device
 #   (init_cache's default is "cuda", resolved by device.resolve_device).
 # * decode_step updates the cache in place: attention writes the new
@@ -37,8 +37,8 @@ Per layer kind:
 
 each as RMSNorm -> mixer -> residual -> RMSNorm -> MLP -> residual.
 
-Entry points: ``init_params`` / ``forward`` / ``prefill`` / ``init_cache`` /
-``decode_step``.
+Entry points: ``init_params`` / ``forward`` / ``loss_and_aux`` / ``prefill`` /
+``init_cache`` / ``decode_step``.
 """
 from __future__ import annotations
 
@@ -207,6 +207,27 @@ def forward(
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x = _run_groups(cfg, params, x, positions, impl)
     return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_and_aux(
+    cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+    impl: str = "reference",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (f32), z-loss, MoE aux.  ``batch["tokens"]``:
+    (B, S_text); optional ``batch["patches"]``: (B, P, d)."""
+    tokens = batch["tokens"]
+    patches = batch.get("patches")
+    inputs = tokens[:, :-1]
+    labels = tokens[:, 1:]
+    logits, aux = forward(cfg, params, inputs, patches, impl)
+    # predictions for text labels sit at the last (S_text - 1) positions
+    logits = logits[:, -labels.shape[1]:, :].float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = (logz - gold).mean()
+    z_loss = 1e-4 * (logz ** 2).mean()
+    total = nll + z_loss + 0.01 * aux
+    return total, {"nll": nll, "z_loss": z_loss, "moe_aux": aux}
 
 
 # -------------------------------------------------------------------- decode

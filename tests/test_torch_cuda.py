@@ -1,11 +1,14 @@
 """The port on a CUDA device: the hand-written kernels against their plain
-versions, the flush path through them, and the serving paths (dense,
-RWKV-6 and RG-LRU hybrid).  Every test here needs a card
-(marker ``cuda``) and skips without one; this file imports no jax, so it
-runs where only torch is installed:
+versions, the flush path through them, the serving paths (dense, RWKV-6
+and RG-LRU hybrid), and the HPC and lm-train apps.  Every test here needs a
+card (marker ``cuda``) and skips without one; this file imports no jax, so
+it runs where only torch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -357,3 +360,56 @@ def test_serve_recurrent_on_device_uses_the_kernels_and_resumes(arch, width, per
     resumed = serve.main(base + ["--workdir", str(tmp_path / "b"), "--inject-failure-at", "16"])
     assert resumed["resumed"]
     np.testing.assert_array_equal(resumed["tokens"], clean["tokens"])
+
+
+# ------------------------------------------ the HPC suite and lm-train apps
+_GOLDENS = os.path.join(os.path.dirname(__file__), "golden", "campaign_goldens.json")
+
+
+def _campaign_entry(app):
+    from repro_torch.core import CrashTester, PersistPlan
+    from repro_torch.hpc.suite import default_cache
+
+    camp = CrashTester(app, PersistPlan.none(), default_cache(app), seed=123).run_campaign(8)
+    counts = {c: 0 for c in ("S1", "S2", "S3", "S4")}
+    for r in camp.records:
+        counts[r.outcome] += 1
+    return {"counts": counts, "golden_iters": camp.golden_iters,
+            "crash_iters": [r.iter_idx for r in camp.records]}
+
+
+@pytest.mark.parametrize("name", ["heat", "cg", "pagerank", "kmeans"])
+def test_hpc_campaign_on_device_reproduces_golden(name):
+    from repro_torch.hpc.suite import ci_app
+
+    with open(_GOLDENS) as f:
+        want = json.load(f)["apps"][name]
+    assert _campaign_entry(ci_app(name, device="cuda")) == want
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_lm_train_gradient_on_device_matches_cpu(dtype, tol):
+    """The same generator weights and tokens on the card and on the CPU.
+    float32: the gradients differ in the order of f32 sums (cuBLAS against
+    the CPU's BLAS), held to 1e-4 abs and rel.  bfloat16: the card's
+    products run in bf16 with f32 sums (cuBLAS), the CPU's as f32 products
+    of the upcast operands rounded once, so the intermediates round
+    differently: held to 2e-2 in relative L2 norm, as against JAX's."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.hpc.suite import CI_SIZES, get_app
+
+    base = dataclasses.replace(get_arch("stablelm-1.6b"), dtype=dtype)
+    apps = {dev: get_app("lm-train", base=base, device=dev, **CI_SIZES["lm-train"])
+            for dev in ("cpu", "cuda")}
+    vec = apps["cpu"].init(0)["params"]
+    for k in (0, 3):
+        want = apps["cpu"]._grad(vec, k).numpy()
+        got = apps["cuda"]._grad(vec, k)
+        assert got.is_cuda
+        got = got.cpu().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+        else:
+            assert np.linalg.norm(got - want) <= tol * np.linalg.norm(want)

@@ -33,6 +33,10 @@ def _port_files():
 def test_no_jax_or_reference_imports_in_port_sources():
     files = _port_files()
     assert len(files) > 20
+    names = {os.path.relpath(f, SRC) for f in files}
+    for mod in ("hpc/heat.py", "hpc/cg.py", "hpc/pagerank.py", "hpc/kmeans.py",
+                "models/train_app.py"):
+        assert os.path.join("repro_torch", mod) in names, mod
     for path in files:
         with open(path) as f:
             hits = FORBIDDEN.findall(f.read())
@@ -53,6 +57,30 @@ def test_port_campaign_leaves_jax_unloaded():
         "assert len(camp.records) == 4\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_port_campaigns_of_the_new_apps_leave_jax_unloaded():
+    """A 2-test campaign of each app of the slice (heat, cg, pagerank,
+    kmeans, lm-train) in a fresh interpreter loads neither jax nor anything
+    of the JAX package."""
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from repro_torch.core import CrashTester, PersistPlan\n"
+        "from repro_torch.hpc.suite import ci_app, default_cache\n"
+        "for name in ('heat', 'cg', 'pagerank', 'kmeans', 'lm-train'):\n"
+        "    app = ci_app(name, device='cpu')\n"
+        "    camp = CrashTester(app, PersistPlan.none(), default_cache(app), seed=0).run_campaign(2)\n"
+        "    assert len(camp.records) == 2, name\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes', 'repro')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'ml_dtypes.', 'repro.')))\n"
         "print('LOADED', bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
@@ -96,6 +124,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ci_app("sor")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ci_app("decode")
+    for name in ("heat", "cg", "pagerank", "kmeans", "lm-train"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ci_app(name)
+        assert ci_app(name, device="cpu").device == "cpu"
     from repro_torch.launch import serve
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -127,8 +159,9 @@ def test_resolve_device():
 def test_unported_apps_name_their_roadmap_item():
     from repro_torch.hpc.suite import CI_SIZES, NOT_PORTED, app_names, ci_app
 
-    assert app_names() == ("decode", "sor")
-    assert set(NOT_PORTED) | {"decode", "sor"} == set(CI_SIZES)
+    assert app_names() == ("cg", "decode", "heat", "kmeans", "lm-train", "pagerank", "sor")
+    assert NOT_PORTED == {"montecarlo": "module item 4.5", "mg": "module item 4.6"}
+    assert set(NOT_PORTED) | set(app_names()) == set(CI_SIZES)
     for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP, {NOT_PORTED[name]}"):
             ci_app(name, device="cpu")

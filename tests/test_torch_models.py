@@ -207,5 +207,8 @@ def test_unported_paths_name_their_roadmap_item():
     _, tcfg = _cfgs("float32")
     x = torch.zeros(1, 8, tcfg.d_model)
     p = {k: torch.zeros(tcfg.d_model, tcfg.d_model) for k in ("wq", "wk", "wv", "wo")}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention_full(p, x, tcfg, torch.arange(8), impl="chunked")
+    # impl="chunked" is ported now (tests/test_torch_train.py); a name the
+    # port does not know still raises
+    with pytest.raises(ValueError, match="chunked"):
+        attention_full(p, x, tcfg, torch.arange(8), impl="flash")
+    assert attention_full(p, x, tcfg, torch.arange(8), impl="chunked").shape == x.shape
