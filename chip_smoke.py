@@ -71,7 +71,22 @@ Phases, in order; any failure ends the run with a nonzero exit:
    4,194,304 points, lm-train at width 2048 (about 110 M parameters).  cg,
    pagerank and kmeans flush their plan's objects; heat and lm-train, whose
    plans flush nothing, flush the selected object at the end of every
-   iteration: the paper's loop-end baseline (Fig 2a).
+   iteration: the paper's loop-end baseline (Fig 2a);
+13. mg and montecarlo characterized on the card: each campaign reproduces
+   its pin (mg its torn-write pin too), ``run_workflow`` gives the JAX
+   package's plan, and the card's golden run is held against the CPU's
+   (information); then, for each of the six apps with a lane driver (cg,
+   heat, kmeans, pagerank, mg, montecarlo), ``advance_lanes`` on the card (a
+   CUDA graph of a chunk of masked steps; montecarlo's bespoke replay)
+   equals the serial loop on the card bit for bit for lanes entering at
+   scattered iterations, and phase A of the pinned campaign is timed with
+   the driver and with the host loop (ms and host syncs; information);
+14. mg at grid 8192 and montecarlo at 2**26 pairs per iteration deployed as
+   phase 12 deploys, each flushing its plan's objects after the two
+   regions its plan names (so twice per iteration).
+
+Every campaign's phase A goes through the apps' lane drivers; a driver that
+raises and falls back to the host loop fails the run.
 
 The second line from the end is a JSON object with one entry per kernel,
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -89,6 +104,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -109,6 +125,8 @@ from repro_torch.core import (  # noqa: E402
     WorkflowConfig,
     run_workflow,
 )
+from repro_torch.core import lane_driver  # noqa: E402
+from repro_torch.core.faults import get_fault_model  # noqa: E402
 from repro_torch.core.manager import flatten_state  # noqa: E402
 from repro_torch.hpc.common import laplacian_apply  # noqa: E402
 from repro_torch.hpc.sor import SORApp, _rb_sor  # noqa: E402
@@ -165,6 +183,21 @@ DEPLOY_APPS = (
     ("kmeans", dict(n_points=4194304)),
     ("heat", dict(grid=DEPLOY_GRID)),
     ("lm-train", dict(width=2048, lr=6e-4)),
+)
+#: the same for mg and montecarlo (slice 7)
+JAX_SLICE7_PLANS = {
+    "mg": (("u",), {1: 1, 3: 1}),
+    "montecarlo": (("counts", "sums"), {0: 1, 1: 1}),
+}
+#: every app with a lane driver, and the field each lane is perturbed in
+DRIVER_NOISE_FIELD = {"cg": "x", "heat": "u", "kmeans": "centroids", "pagerank": "rank",
+                      "mg": "u", "montecarlo": "sums"}
+#: slice 7's deployments: mg at SOR's grid (u, r and b 256 MiB each, ec 64
+#: MiB); montecarlo at 2**26 pairs per iteration (scratch 256 MiB), whose
+#: 20 iterations draw 1.34e9 pairs, about NPB EP class B's 2**30
+DEPLOY_SLICE7 = (
+    ("mg", dict(grid=DEPLOY_GRID)),
+    ("montecarlo", dict(batch=1 << 26)),
 )
 #: the serving path: StableLM-2-1.6B unscaled, 4 prompts of 1024 tokens
 SERVE_ARCH = "stablelm-1.6b"
@@ -408,15 +441,18 @@ def _u8(t: torch.Tensor) -> torch.Tensor:
 
 
 def deploy(dev: str, name: str, app, plan: PersistPlan, label: str,
-           restore_verify=None, extra=None) -> dict:
+           restore_verify=None, extra=None, flush_after=None) -> dict:
     """The app under ``EasyCrashManager`` with ``plan``'s objects and delta
-    flushes: DEPLOY_ITERS iterations, each flushed (the first writes all,
-    the others take their masks from ``delta_snapshot``; every image must
-    equal the live bytes, and every flush write the blocks the plain mask
-    names), a crash, a restore from the arena (its objects equal to the last
-    flushed bytes), AFTER_RESTORE_ITERS more iterations, each flushed
+    flushes: DEPLOY_ITERS iterations, each flushed (the first flush writes
+    all, the others take their masks from ``delta_snapshot``; every image
+    must equal the live bytes, and every flush write the blocks the plain
+    mask names), a crash, a restore from the arena (its objects equal to the
+    last flushed bytes), AFTER_RESTORE_ITERS more iterations, each flushed
     through the kernel against the shadow the restore left.
 
+    ``flush_after`` names the regions after which every iteration flushes
+    (the plan's region frequencies, each 1; both flushes of iteration k
+    carry step k); None flushes once, at the end of every iteration.
     ``restore_verify(state, step)`` is the restore's acceptance hook (None
     accepts); ``extra`` is (name, fn(state) -> float, check(values) -> bool),
     a metric recorded at the restore and after each later iteration, whose
@@ -424,33 +460,49 @@ def deploy(dev: str, name: str, app, plan: PersistPlan, label: str,
     t0 = time.perf_counter()
     state = state_to_torch(app.init(0), dev)
     obj_bytes = {n: state[n].numel() * state[n].element_size() for n in plan.objects}
-    log(f"[deploy {name}] {label}: flushes {obj_bytes} bytes on {dev} every "
-        f"{min(plan.region_freq.values())} iteration(s); init {time.perf_counter() - t0:.1f} s")
+    points = tuple(flush_after) if flush_after else (None,)
+    regions = app.regions()
+    where = ("at the end of every iteration" if points == (None,) else
+             "after " + " and ".join(regions[i].name for i in points) + " in every iteration")
+    log(f"[deploy {name}] {label}: flushes {obj_bytes} bytes on {dev} {where}; "
+        f"init {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     arena = NVMArena(BLOCK_BYTES)
-    policy = FlushPolicy(leaves=plan.objects, every_steps=min(plan.region_freq.values()),
-                         async_flush=False, persist_mode="delta")
+    policy = FlushPolicy(leaves=plan.objects, every_steps=1, async_flush=False,
+                         persist_mode="delta")
     mgr = EasyCrashManager(arena, policy)
+    rec = {"flush_s": [], "splits": [], "steady": None, "prev": None, "prev_step": None}
 
-    iter_s, flush_s = [], []
-    steady = None  # manager stats after the first (full-write) flush
-    prev = None
-    for step in range(1, DEPLOY_ITERS + 1):
-        t0 = time.perf_counter()
-        state = app.run_iteration(state)
-        torch.cuda.synchronize()
-        iter_s.append(time.perf_counter() - t0)
+    def iterate(state, on_flush):
+        """One iteration, flushing at each point; returns the state and the
+        seconds spent computing (flushes excluded)."""
+        spent = 0.0
+        steps = ((None, app.run_iteration),) if points == (None,) else \
+            tuple((i, r.fn) for i, r in enumerate(regions))
+        for i, fn in steps:
+            t0 = time.perf_counter()
+            state = fn(state)
+            torch.cuda.synchronize()
+            spent += time.perf_counter() - t0
+            if i in points:
+                on_flush(i, state)
+        return state, spent
+
+    def checked_flush(step, point, state):
         expect = None
-        if prev is not None:  # the plain version's count of dirty blocks
-            expect = 1 + sum(  # + the __step__ leaf's one block
-                int(dirty_block_mask_reference(_u8(state[n]), _u8(prev[n]), BLOCK_BYTES).sum())
+        if rec["prev"] is not None:  # the plain version's count of dirty blocks
+            expect = int(step != rec["prev_step"]) + sum(  # + the __step__ leaf's block
+                int(dirty_block_mask_reference(_u8(state[n]), _u8(rec["prev"][n]),
+                                               BLOCK_BYTES).sum())
                 for n in plan.objects)
         before = mgr.stats.blocks_written
+        parts = [getattr(mgr.stats, k) for k in SPLIT_KEYS]
         t0 = time.perf_counter()
         if not mgr.maybe_flush(step, state):
             raise AssertionError(f"{name} step {step}: the plan's cadence flushes every step")
-        flush_s.append(time.perf_counter() - t0)
+        rec["flush_s"].append((point, time.perf_counter() - t0))
+        rec["splits"].append([getattr(mgr.stats, k) - v for k, v in zip(SPLIT_KEYS, parts)])
         written = mgr.stats.blocks_written - before
         if expect is not None and written != expect:
             raise AssertionError(f"{name} step {step}: flush wrote {written} blocks, "
@@ -461,14 +513,20 @@ def deploy(dev: str, name: str, app, plan: PersistPlan, label: str,
         if int(arena.get("__step__")) != step:
             raise AssertionError(f"{name} step {step}: arena step is "
                                  f"{int(arena.get('__step__'))}")
-        if step == 1:
-            steady = dict(vars(mgr.stats))
-        prev = {n: state[n].clone() for n in plan.objects}
+        if rec["steady"] is None:
+            rec["steady"] = dict(vars(mgr.stats))
+        rec["prev"] = {n: state[n].clone() for n in plan.objects}
+        rec["prev_step"] = step
+
+    iter_s = []
+    for step in range(1, DEPLOY_ITERS + 1):
+        state, spent = iterate(state, lambda i, s, step=step: checked_flush(step, i, s))
+        iter_s.append(spent)
     peak = torch.cuda.max_memory_allocated()
-    n_steady = DEPLOY_ITERS - 1
+    flush_s, steady, prev = rec["flush_s"], rec["steady"], rec["prev"]
+    n_delta = len(flush_s) - 1
     st = vars(mgr.stats)
-    split = {k: (st[k] - steady[k]) / n_steady * 1e3
-             for k in ("mask_seconds", "copy_seconds", "arena_seconds")}
+    split = {k: (st[k] - steady[k]) / n_delta * 1e3 for k in SPLIT_KEYS}
     out = {
         "plan": label,
         "objects": list(plan.objects),
@@ -476,19 +534,30 @@ def deploy(dev: str, name: str, app, plan: PersistPlan, label: str,
         "ms_per_iter": float(np.mean(iter_s)) * 1e3,
         "ms_first_iter": iter_s[0] * 1e3,
         "ms_per_iter_after_first": float(np.mean(iter_s[1:])) * 1e3,
-        "ms_first_flush": flush_s[0] * 1e3,
-        "ms_per_flush": float(np.mean(flush_s[1:])) * 1e3,
+        "ms_first_flush": flush_s[0][1] * 1e3,
+        "ms_per_flush": float(np.mean([s for _, s in flush_s[1:]])) * 1e3,
         "flush_split_ms": split,
         "bytes_written": mgr.stats.bytes_written,
         "bytes_first_flush": steady["bytes_written"],
-        "bytes_per_flush": (st["bytes_written"] - steady["bytes_written"]) / n_steady,
+        "bytes_per_flush": (st["bytes_written"] - steady["bytes_written"]) / n_delta,
         "peak_device_bytes": peak,
     }
+    if points != (None,):
+        out["flushes_per_iter"] = len(points)
+        out["ms_per_flush_by_region"] = {
+            regions[i].name: float(np.mean([s for p, s in flush_s[1:] if p == i])) * 1e3
+            for i in points}
+        out["flush_split_ms_by_region"] = {
+            regions[i].name: dict(zip(SPLIT_KEYS, (np.mean(
+                [sp for (p, _), sp in zip(flush_s[1:], rec["splits"][1:]) if p == i],
+                axis=0) * 1e3).tolist()))
+            for i in points}
     log(f"[deploy {name}] {DEPLOY_ITERS} iterations: {out['ms_per_iter']:.2f} ms/iteration "
         f"(the first {out['ms_first_iter']:.2f}, the rest {out['ms_per_iter_after_first']:.2f}), "
         f"first flush (full write) {out['ms_first_flush']:.1f} ms, then "
         f"{out['ms_per_flush']:.1f} ms/flush (mask {split['mask_seconds']:.1f}, "
-        f"device-to-host {split['copy_seconds']:.1f}, arena {split['arena_seconds']:.1f} ms)")
+        f"device-to-host {split['copy_seconds']:.1f}, arena {split['arena_seconds']:.1f} ms)"
+        + (f", by region {out['flush_split_ms_by_region']}" if points != (None,) else ""))
     log(f"[deploy {name}] bytes written {out['bytes_written']} "
         f"({out['bytes_per_flush']:.0f} per delta flush), peak device memory {peak} bytes")
 
@@ -507,24 +576,27 @@ def deploy(dev: str, name: str, app, plan: PersistPlan, label: str,
             raise AssertionError(f"{name}: restored {n!r} differs from the last flushed bytes")
     progress = [app.progress(restored)]
     extras = [extra[1](restored)] if extra else []
-    state = restored
-    for k in range(1, AFTER_RESTORE_ITERS + 1):
-        state = app.run_iteration(state)
-        progress.append(app.progress(state))
-        if extra:
-            extras.append(extra[1](state))
+
+    def restarted_flush(step, point, state):
         # the restarted run flushes on: the restore left the manager a shadow
         # of each object on the card, so this delta mask comes from the kernel
         launches = dirty_block_mask.launches
-        if not mgr.maybe_flush(DEPLOY_ITERS + k, state):
-            raise AssertionError(f"{name} step {DEPLOY_ITERS + k}: no flush after the restore")
+        if not mgr.maybe_flush(step, state):
+            raise AssertionError(f"{name} step {step}: no flush after the restore")
         if dirty_block_mask.launches != launches + len(plan.objects):
-            raise AssertionError(f"{name} step {DEPLOY_ITERS + k}: the flush after the "
+            raise AssertionError(f"{name} step {step}: the flush after the "
                                  f"restore did not launch delta_snapshot")
         for n in plan.objects:
             if not _same_bytes(arena.peek(n), state[n]):
-                raise AssertionError(f"{name} step {DEPLOY_ITERS + k}: arena image of {n!r} "
+                raise AssertionError(f"{name} step {step}: arena image of {n!r} "
                                      f"!= live bytes")
+
+    state = restored
+    for k in range(1, AFTER_RESTORE_ITERS + 1):
+        state, _ = iterate(state, lambda i, s, step=DEPLOY_ITERS + k: restarted_flush(step, i, s))
+        progress.append(app.progress(state))
+        if extra:
+            extras.append(extra[1](state))
     if not all(np.isfinite(progress)):
         raise AssertionError(f"{name}: the progress metric after the restore is not finite: "
                              f"{progress}")
@@ -534,13 +606,25 @@ def deploy(dev: str, name: str, app, plan: PersistPlan, label: str,
     if extra:
         out[f"{extra[0]}_after_restore"] = extras
     log(f"[deploy {name}] restored step {step} from the arena (source={source}), objects "
-        f"equal to the last flushed bytes; {AFTER_RESTORE_ITERS} more iterations, each flushed "
+        f"equal to the last flushed bytes; {AFTER_RESTORE_ITERS} more iterations, each flush "
         f"through the kernel: progress {progress}"
         + (f", {extra[0]} {extras}" if extra else ""))
     mgr.close()
     del state, restored, prev
+    rec.clear()
     torch.cuda.empty_cache()
     return out
+
+
+#: the parts of a flush that ManagerStats times
+SPLIT_KEYS = ("mask_seconds", "copy_seconds", "arena_seconds")
+
+
+def delta_launches_expected(plan: PersistPlan, flushes_per_iter: int = 1) -> int:
+    """One ``delta_snapshot`` launch per object and delta flush: every flush
+    but the first (a full write) of DEPLOY_ITERS iterations, and every flush
+    of AFTER_RESTORE_ITERS more."""
+    return (flushes_per_iter * (DEPLOY_ITERS + AFTER_RESTORE_ITERS) - 1) * len(plan.objects)
 
 
 def phase_deploy(dev: str, plan: PersistPlan) -> dict:
@@ -1375,7 +1459,217 @@ def phase_deploy_suite(dev: str, plans: dict) -> dict:
         dirty_block_mask.launches = 0
         res = deploy(dev, name, app, plan, label)
         launches = dirty_block_mask.launches
-        want = (DEPLOY_ITERS - 1 + AFTER_RESTORE_ITERS) * len(plan.objects)
+        want = delta_launches_expected(plan)
+        if launches != want:
+            raise AssertionError(f"{name}: delta_snapshot launched {launches} times, expected "
+                                 f"one per object and delta flush ({want})")
+        res["delta_launches"] = launches
+        res["size"] = size
+        log(f"[deploy {name}] summary {json.dumps(res)}")
+        out[name] = res
+        del app
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------- 13. mg and montecarlo, and the lane driver
+def _torn_write_entry(name: str, app) -> dict:
+    with open(GOLDENS) as f:
+        cfg = json.load(f)["config"]
+    fault = get_fault_model("torn-write", app=app)
+    camp = CrashTester(app, PersistPlan.none(), default_cache(app), seed=cfg["seed"],
+                       fault=fault).run_campaign(cfg["n_tests"])
+    counts = {c: 0 for c in ("S1", "S2", "S3", "S4")}
+    for r in camp.records:
+        counts[r.outcome] += 1
+    return {"counts": counts, "golden_iters": camp.golden_iters,
+            "crash_iters": [r.iter_idx for r in camp.records]}
+
+
+def _serial_phase_a(app, s0, it: int, stop: int):
+    """The campaign's phase-A loop for one lane: step, then converged(), to
+    the budget; (state, it, ok), ok False where converged() raised."""
+    s = dict(s0)
+    while it < stop:
+        s = app.run_iteration(s)
+        it += 1
+        try:
+            if app.converged(s, it):
+                break
+        except FloatingPointError:
+            return s, it, False
+    return s, it, True
+
+
+def _host_phase_a(app, states, its, stop: int) -> None:
+    """The crash tester's phase A without a driver: per iteration, one
+    run_iteration_batch and one converged_batch over the running lanes,
+    padded to a power of two as ``CrashTester._call_padded`` pads them."""
+    lanes = [[s, int(it)] for s, it in zip(states, its) if it < stop]
+    while lanes:
+        for l, s in zip(lanes, CrashTester._call_padded(app.run_iteration_batch,
+                                                        [l[0] for l in lanes])):
+            l[0], l[1] = s, l[1] + 1
+        convs = CrashTester._call_padded(app.converged_batch, [l[0] for l in lanes],
+                                         [l[1] for l in lanes])
+        lanes = [l for l, c in zip(lanes, convs)
+                 if not (isinstance(c, BaseException) or c or l[1] >= stop)]
+
+
+def _syncs_and_ms(fn) -> tuple:
+    """(host syncs, ms) of ``fn()``: the syncs counted by torch's sync debug
+    mode in one run, the time of a second run without it."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if any("advance_lanes raised" in str(w.message) for w in caught):
+        raise AssertionError("a lane driver fell back to the host loop")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return syncs, (time.perf_counter() - t0) * 1e3
+
+
+def _check_driver_bitwise(name: str, app) -> None:
+    """advance_lanes on the card (a CUDA graph, but for montecarlo's
+    bespoke replay) against the serial host loop on the card, state for
+    state bitwise, for perturbed lanes entering at scattered iterations."""
+    s = app.init(0)
+    traj, stop, it = [s], app.n_iters, 0
+    while it < app.n_iters:
+        s = app.run_iteration(s)
+        it += 1
+        traj.append(s)
+        if app.converged(s, it):
+            stop = it
+            break
+    rng = np.random.default_rng(7)
+    field = DRIVER_NOISE_FIELD[name]
+    entry = sorted({1, stop // 4, stop // 2, max(stop - 1, 1), stop})
+    lanes = []
+    for ei in entry:
+        lane = {k: np.array(v, copy=True) for k, v in traj[ei].items()}
+        lane[field] = (lane[field] + rng.standard_normal(lane[field].shape) * 1e-5
+                       ).astype(lane[field].dtype)
+        lanes.append(lane)
+    captures, replays = lane_driver.STATS.captures, lane_driver.STATS.replays
+    states, its, oks = app.advance_lanes(lanes, entry, stop)
+    for i, (lane, ei) in enumerate(zip(lanes, entry)):
+        want, wit, wok = _serial_phase_a(app, lane, ei, stop)
+        if not (wok and oks[i] and its[i] == wit):
+            raise AssertionError(f"{name} lane {i}: driver (ok={oks[i]}, it={its[i]}) against "
+                                 f"the serial loop (ok={wok}, it={wit})")
+        for k in want:
+            if np.asarray(want[k]).tobytes() != np.asarray(states[i][k]).tobytes():
+                raise AssertionError(f"{name} lane {i}: {k!r} differs from the serial loop's")
+    replays = lane_driver.STATS.replays - replays
+    if name != "montecarlo" and replays < 1:
+        raise AssertionError(f"{name}: advance_lanes replayed no CUDA graph")
+    log(f"[slice7] {name}: advance_lanes on the card equals the serial loop bitwise for "
+        f"lanes entering at {entry} (stop {stop}); {lane_driver.STATS.captures - captures} "
+        f"graph(s) captured, {replays} replays")
+
+
+def _time_phase_a(name: str, app) -> dict:
+    """The pinned campaign with the driver, recording each advance_lanes
+    call (its first run captures the buckets' graphs); then, warm, phase A
+    of those calls both ways, the driver and the host loop (ms and host
+    syncs summed over the campaign), and the whole campaign both ways."""
+    calls = []
+    advance = app.advance_lanes
+
+    def recorded(states, its, stop):
+        calls.append(([dict(s) for s in states], list(its), int(stop)))
+        return advance(states, its, stop)
+
+    app.advance_lanes = recorded
+    t0 = time.perf_counter()
+    _campaign_entry(app)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    app.advance_lanes = advance
+    out = {"lanes": sum(len(c[0]) for c in calls), "calls": len(calls)}
+    before = dataclasses.replace(lane_driver.STATS)
+    for route, fn in (("driver", lambda: [advance(*c) for c in calls]),
+                      ("host_loop", lambda: [_host_phase_a(app, *c) for c in calls])):
+        syncs, ms = _syncs_and_ms(fn)
+        out[f"{route}_ms"], out[f"{route}_syncs"] = ms, syncs
+    # the driver ran twice above (counted, then timed)
+    out["driver_chunks"] = (lane_driver.STATS.chunks - before.chunks) // 2
+    for route, on in (("campaign_ms", True), ("campaign_ms_host_loop", False)):
+        app.supports_lane_driver = on
+        t0 = time.perf_counter()
+        _campaign_entry(app)
+        out[route] = (time.perf_counter() - t0) * 1e3
+    del app.supports_lane_driver
+    out["campaign_ms_first"] = first_ms
+    log(f"[slice7] {name} phase A over the pinned campaign ({out['calls']} calls, "
+        f"{out['lanes']} lanes): driver {out['driver_ms']:.1f} ms, {out['driver_syncs']} host "
+        f"syncs, {out['driver_chunks']} chunks; host loop {out['host_loop_ms']:.1f} ms, "
+        f"{out['host_loop_syncs']} host syncs; whole campaign {out['campaign_ms']:.0f} ms "
+        f"with the driver (the first, capturing, {first_ms:.0f} ms), "
+        f"{out['campaign_ms_host_loop']:.0f} ms without")
+    return out
+
+
+def phase_slice7(dev: str) -> dict:
+    """mg and montecarlo: pins (mg's torn-write pin too), the JAX plans,
+    the card's golden run against the CPU's; then the lane driver of all six
+    apps on the card, bitwise against the serial loop, and phase A timed."""
+    plans = {}
+    for name, want in JAX_SLICE7_PLANS.items():
+        app = ci_app(name, device=dev)
+        _check_pin(name, app, tag="slice7")
+        if name == "mg":
+            with open(GOLDENS) as f:
+                pin = json.load(f)["torn_write_apps"]["mg"]
+            got = _torn_write_entry(name, app)
+            log(f"[slice7] mg torn-write campaign on {dev}: {got}")
+            if got != pin:
+                raise AssertionError(f"mg torn-write campaign differs from its golden {pin}")
+        plan = _workflow_plan(name, app, tag="slice7")
+        if (plan.objects, plan.region_freq) != want:
+            raise AssertionError(f"{name}: plan differs from the JAX plan {want}")
+        log(f"[slice7] {name}: {_golden_divergence(name, dev)}")
+        plans[name] = plan
+    timing = {}
+    for name in DRIVER_NOISE_FIELD:
+        app = ci_app(name, device=dev)
+        _check_driver_bitwise(name, app)
+        timing[name] = _time_phase_a(name, app)
+    log(f"[slice7] lane driver totals {dataclasses.asdict(lane_driver.STATS)}")
+    return {"plans": plans, "phase_a": timing}
+
+
+# ------------------------------------------- 14. mg and montecarlo deployed
+def phase_deploy_slice7(dev: str, plans: dict) -> dict:
+    """mg at grid 8192 and montecarlo at 2**26 pairs per iteration, each
+    flushing after the regions its plan names, with the launches of
+    ``delta_snapshot`` counted per deployment."""
+    out = {}
+    for name, size in DEPLOY_SLICE7:
+        app = get_app(name, device=dev, **size)
+        plan = plans[name]
+        points = tuple(sorted(plan.region_freq))
+        if any(plan.region_freq[i] != 1 for i in points):
+            raise AssertionError(f"{name}: the deployment flushes every iteration, the plan "
+                                 f"says {plan.region_freq}")
+        extra = None
+        if name == "montecarlo":
+            pairs = float(app.batch)
+            extra = ("pairs_counted", app.progress,
+                     lambda v: v == [pairs * (DEPLOY_ITERS + k) for k in range(len(v))])
+        dirty_block_mask.launches = 0
+        res = deploy(dev, name, app, plan, "run_workflow's plan", extra=extra,
+                     flush_after=points)
+        launches = dirty_block_mask.launches
+        want = delta_launches_expected(plan, len(points))
         if launches != want:
             raise AssertionError(f"{name}: delta_snapshot launched {launches} times, expected "
                                  f"one per object and delta flush ({want})")
@@ -1405,6 +1699,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 2
     dev = resolve_device("cuda")  # also sets the matmul precision flags
+    # a campaign whose lane driver breaks must fail, not fall back quietly
+    warnings.filterwarnings("error", message=".*advance_lanes raised", category=RuntimeWarning)
+    t_start = time.perf_counter()
     gpu = phase_environment()
     max_err = check_kernel(dev)
     kern = time_kernel(dev)
@@ -1413,7 +1710,7 @@ def main() -> int:
     plan = phase_characterize(dev)
     deploy = phase_deploy(dev, plan)
     launches = dirty_block_mask.launches
-    want = (DEPLOY_ITERS - 1 + AFTER_RESTORE_ITERS) * len(plan.objects)
+    want = delta_launches_expected(plan)
     if launches != want:
         raise AssertionError(f"delta_snapshot launched {launches} times on the main path, "
                              f"expected one per leaf and delta flush ({want})")
@@ -1439,6 +1736,15 @@ def main() -> int:
     suite = phase_deploy_suite(dev, plans)
     log(f"[suite] characterization {t1 - t0:.1f} s, deployments "
         f"{time.perf_counter() - t1:.1f} s")
+
+    t0 = time.perf_counter()
+    slice7 = phase_slice7(dev)
+    log(f"[slice7] phase A timings {json.dumps(slice7['phase_a'])}")
+    t1 = time.perf_counter()
+    slice7_deploy = phase_deploy_slice7(dev, slice7["plans"])
+    suite.update(slice7_deploy)
+    log(f"[slice7] characterization {t1 - t0:.1f} s, deployments "
+        f"{time.perf_counter() - t1:.1f} s; the whole run {time.perf_counter() - t_start:.1f} s")
 
     log(gpu)
     print(json.dumps({"kernels": [{

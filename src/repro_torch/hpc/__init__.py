@@ -1,8 +1,8 @@
 """Region-structured HPC applications, ported to torch.
 
-Ported so far: sor, heat, cg, pagerank and kmeans (and, through the suite
-registry, the model stack's lm-train and decode); :func:`get_app` names the
-ROADMAP item of every other app of the JAX suite.
+Every app of the JAX suite: sor, heat, cg, pagerank, kmeans, mg and
+montecarlo (and, through the suite registry, the model stack's lm-train and
+decode).
 """
 from typing import Dict
 
@@ -10,6 +10,8 @@ from ..core.regions import IterativeApp
 from .cg import CGApp
 from .heat import HeatApp
 from .kmeans import KMeansApp
+from .mg import MGApp
+from .montecarlo import MonteCarloApp
 from .pagerank import PageRankApp
 from .sor import SORApp
 
@@ -17,6 +19,8 @@ _REGISTRY: Dict[str, type] = {
     "cg": CGApp,
     "heat": HeatApp,
     "kmeans": KMeansApp,
+    "mg": MGApp,
+    "montecarlo": MonteCarloApp,
     "pagerank": PageRankApp,
     "sor": SORApp,
 }
@@ -36,4 +40,5 @@ def get_app(name: str, **kwargs) -> IterativeApp:
     return suite.get_app(name, **kwargs)
 
 
-__all__ = ["get_app", "app_names", "CGApp", "HeatApp", "KMeansApp", "PageRankApp", "SORApp"]
+__all__ = ["get_app", "app_names", "CGApp", "HeatApp", "KMeansApp", "MGApp", "MonteCarloApp",
+           "PageRankApp", "SORApp"]

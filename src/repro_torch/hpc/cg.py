@@ -12,10 +12,12 @@
 #   rounded), which is what NumPy does in the JAX regions, so given the same
 #   scalars they are bitwise JAX's.  The Python float scalar takes the
 #   vector's float32 type first, as NumPy's weak scalar does.
-# * The batched hook does the same host scalar math per lane (so it needs
-#   no f32-division argument) and selects, per lane, between the true
-#   residual and the recurrence on residual-replacement iterations.
-# * No lane driver (supports_lane_driver stays False; ROADMAP, module item 5).
+# * The batched step (_step_core, which advance_lanes' device loop runs too,
+#   as a CUDA graph on the card) does the serial scalar math on the device
+#   in float64: each float32 scalar widened, one correctly rounded float64
+#   division, the quotient rounded to float32, as the host does it.  It
+#   selects, per lane, between the true residual and the recurrence on
+#   residual-replacement iterations.
 """CG: preconditioner-free conjugate gradient on the 2-D Laplacian.
 
 Analogue of NPB CG (sparse linear algebra).  Four first-level code regions
@@ -53,6 +55,32 @@ def _f32_scalar(x: float) -> float:
     """``x`` rounded to float32, as a Python float (which a float32 tensor
     op then takes exactly)."""
     return float(np.float32(x))
+
+
+def _ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """float32(float(num) / float(den)) per lane, 0 where den is 0: the
+    host's float64 scalar division, on the device."""
+    q = num.double() / torch.where(den != 0.0, den, 1.0).double()
+    return torch.where(den != 0.0, q, 0.0).float()
+
+
+def _step_core(a: dict, b: torch.Tensor, g: int, rr_every: int) -> dict:
+    """One iteration of the four regions on stacked lanes ((L, n) vectors,
+    (L, 1) scalars); lane i is bitwise the serial iteration."""
+    x, r, p, rho, k = a["x"], a["r"], a["p"], a["rho"], a["k"]
+    q = laplacian_apply(p, g)
+    alpha = _ratio(rho, _dot(p, q)[:, None])
+    x = x + alpha * p
+    if rr_every:
+        use_rr = (k + 1) % rr_every == 0
+    else:
+        use_rr = torch.zeros_like(k, dtype=torch.bool)
+    # both branches computed, selected per lane (an exact select)
+    r = torch.where(use_rr, b - laplacian_apply(x, g), r - alpha * q)
+    rho_new = _dot(r, r)[:, None]
+    p = torch.where(use_rr, r, r + _ratio(rho_new, rho) * p)
+    return {"x": x, "r": r, "p": p, "q": q, "rho": rho_new, "rho_prev": rho,
+            "alpha": alpha, "k": k + 1}
 
 
 class CGApp(IterativeApp):
@@ -180,16 +208,15 @@ class CGApp(IterativeApp):
     # ``b`` is read-only, so the hooks stack only the per-lane vectors and
     # take lane 0's right-hand side.  Vector ops are elementwise or stencils
     # on the stack, the dots tree_sum's fixed order per row, and the scalar
-    # math the serial float64 host code per lane: each lane is bitwise the
+    # math the serial float64 division per lane: each lane is bitwise the
     # serial one.
     supports_batched_step = True
+    supports_lane_driver = True
+
+    _CARRY = ("x", "r", "p", "q", "rho", "rho_prev", "alpha", "k")
 
     def _stack(self, states, name: str) -> torch.Tensor:
         return self._t(np.stack([as_numpy(s[name]) for s in states]))
-
-    def _col(self, values) -> torch.Tensor:
-        """Per-lane float32 scalars as an (L, 1) column."""
-        return self._t(np.asarray(values, np.float32).reshape(-1, 1))
 
     def batched_kernels(self):
         from ..core.regions import BatchedKernel
@@ -203,35 +230,15 @@ class CGApp(IterativeApp):
         )
 
     def run_iteration_batch(self, states):
-        g = self.grid
         b = self._t(as_numpy(states[0]["b"]))
-        x, r, p = (self._stack(states, f) for f in ("x", "r", "p"))
-        q = laplacian_apply(p, g)
-        pq = as_numpy(_dot(p, q))
-        alphas = []
-        for i, s in enumerate(states):
-            pqi = float(pq[i])
-            alphas.append(float(s["rho"][0]) / pqi if pqi != 0.0 else 0.0)
-        alpha = self._col(alphas)
-        x = x + alpha * p
-        # both branches computed, selected per lane (an exact select)
-        use_rr = self._t(np.array([self._rr(int(s["k"][0])) for s in states]).reshape(-1, 1))
-        r = torch.where(use_rr, b - laplacian_apply(x, g), r - alpha * q)
-        rho = as_numpy(_dot(r, r))
-        betas = []
-        for i, s in enumerate(states):
-            denom = float(s["rho"][0])  # the new rho_prev
-            betas.append(float(rho[i]) / denom if denom != 0.0 else 0.0)
-        p = torch.where(use_rr, r, r + self._col(betas) * p)
-        x, r, p, q = (as_numpy(v) for v in (x, r, p, q))
+        new = _step_core({f: self._stack(states, f) for f in self._CARRY}, b, self.grid,
+                         self.rr_every)
+        new = {f: as_numpy(v) for f, v in new.items()}
         out = []
         for i, s in enumerate(states):
             s = dict(s)
-            s["x"], s["r"], s["p"], s["q"] = x[i], r[i], p[i], q[i]
-            s["alpha"] = _f32(alphas[i])
-            s["rho_prev"] = np.array(s["rho"], copy=True)
-            s["rho"] = _f32(float(rho[i]))
-            s["k"] = s["k"] + 1
+            for f in self._CARRY:
+                s[f] = new[f][i]
             out.append(s)
         return out
 
@@ -263,3 +270,31 @@ class CGApp(IterativeApp):
             res = float(np.linalg.norm(r)) / max(nb, 1e-30)
             out.append(VerifyResult(bool(np.isfinite(res) and res < self.tol), res))
         return out
+
+    def advance_lanes(self, states, its, stop):
+        from ..core.lane_driver import LaneSpec, cached_driver, f32_monotone_cutoff
+
+        g, rr, n_iters, tol = self.grid, self.rr_every, self.n_iters, self.tol
+        # the serial decision sqrt(max(rho,0))/max(||b||,eps) < tol/2 is a
+        # monotone float64 predicate of the carried float32 rho; ||b|| is
+        # lane-constant, so the whole decision folds to rho <= cutoff
+        nb = float(np.linalg.norm(as_numpy(states[0]["b"])))
+        cutoff = float(f32_monotone_cutoff(
+            lambda v: np.sqrt(max(v, 0.0)) / max(nb, 1e-30) < tol * 0.5))
+
+        def check(consts, a, it):
+            rho = a["rho"][:, 0]
+            over = it >= n_iters
+            fin = torch.isfinite(rho)
+            conv = over | (fin & (rho <= cutoff))
+            suspect = ~over & ~fin  # serial converged() would raise
+            return conv, suspect
+
+        key = ("cg", g, tol, n_iters, self._seed, rr, self.device)
+        drv = cached_driver(key, lambda: LaneSpec(
+            carry=self._CARRY,
+            consts=lambda s0: {"b": self._t(as_numpy(s0["b"]))},
+            step=lambda consts, a: _step_core(a, consts["b"], g, rr),
+            check=check, device=self.device,
+        ))
+        return drv.advance(states, its, stop)

@@ -2,8 +2,8 @@
 
 The matrix-free Laplacian and the relative residual of
 ``repro/hpc/common.py``, and :func:`tree_sum`, the port's one reduction
-order for the suite's float32 sums.  ``jacobi_sweep``, ``restrict`` and
-``prolong`` come with mg.
+order for the suite's float32 sums; mg's ``jacobi_sweep``, ``restrict`` and
+``prolong``.  Leading dimensions of every grid function are lanes.
 """
 from __future__ import annotations
 
@@ -26,6 +26,60 @@ def laplacian_apply(x_flat: torch.Tensor, g: int) -> torch.Tensor:
     y = y - F.pad(x[..., :, 1:], (0, 1))
     y = y - F.pad(x[..., :, :-1], (1, 0))
     return y.reshape(x_flat.shape)
+
+
+def _neighbour_sum(u: torch.Tensor) -> torch.Tensor:
+    """The four neighbours of each cell (zero outside the grid), added in
+    the order ``repro/hpc/common.py`` writes them (XLA does not reassociate)."""
+    return (F.pad(u[..., 1:, :], (0, 0, 0, 1)) + F.pad(u[..., :-1, :], (0, 0, 1, 0))
+            + F.pad(u[..., :, 1:], (0, 1)) + F.pad(u[..., :, :-1], (1, 0)))
+
+
+def jacobi_sweep(u_flat: torch.Tensor, b_flat: torch.Tensor, g: int,
+                 omega: float = 0.8) -> torch.Tensor:
+    """One weighted-Jacobi smoothing sweep for A u = b.
+
+    ``b_flat`` may be one lane's, broadcast over ``u_flat``'s lanes.  XLA
+    contracts ``u + omega * (u_new - u)`` into one fused multiply-add, and
+    ``torch.addcmul`` rounds it once the same way; ``(b + nb) / 4`` is exact
+    whichever way it is written.  Bitwise JAX's on the CPU.
+    """
+    u = u_flat.reshape(*u_flat.shape[:-1], g, g)
+    b = b_flat.reshape(*b_flat.shape[:-1], g, g)
+    u_new = (b + _neighbour_sum(u)) / 4.0
+    # a fill, not a host copy: a CUDA graph may capture it
+    om = torch.full((), float(np.float32(omega)), dtype=u.dtype, device=u.device)
+    return torch.addcmul(u, om, u_new - u).reshape(u_flat.shape)
+
+
+def restrict(r_flat: torch.Tensor, g: int) -> torch.Tensor:
+    """Full-weighting restriction g x g -> g/2 x g/2 (g even).
+
+    The 2 x 2 sums take the order XLA's CPU reduce gives
+    ``mean(axis=(1, 3))``, found bitwise against it for every even grid
+    from 4 to 128: where g is a power of two, each row's pair first,
+    ``(r00 + r01) + (r10 + r11)``; elsewhere one element after the other,
+    ``((r00 + r01) + r10) + r11``.  The other orders differ from it in a
+    fifth to a third of the cells.
+    """
+    gc = g // 2
+    r = r_flat.reshape(*r_flat.shape[:-1], g, g)[..., : gc * 2, : gc * 2]
+    r = r.reshape(*r.shape[:-2], gc, 2, gc, 2)
+    r00, r01 = r[..., :, 0, :, 0], r[..., :, 0, :, 1]
+    r10, r11 = r[..., :, 1, :, 0], r[..., :, 1, :, 1]
+    if g & (g - 1) == 0:
+        s = (r00 + r01) + (r10 + r11)
+    else:
+        s = ((r00 + r01) + r10) + r11
+    return (s / 4.0).reshape(*r_flat.shape[:-1], gc * gc)
+
+
+def prolong(e_flat: torch.Tensor, g: int) -> torch.Tensor:
+    """Piecewise-constant prolongation g/2 x g/2 -> g x g (copies only)."""
+    gc = g // 2
+    lead = e_flat.shape[:-1]
+    e = e_flat.reshape(*lead, gc, 1, gc, 1)
+    return e.expand(*lead, gc, 2, gc, 2).reshape(*lead, g * g)
 
 
 def tree_sum(x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,8 @@
 # * fori_loop is a Python loop of ``steps_per_iter`` steps; the pin scatter
 #   is ``where(pin_mask, 1.0, u)`` in both the serial and the batched step
 #   (the same values as the scatter: exactly 1.0 at the pins).
-# * No lane driver (supports_lane_driver stays False; ROADMAP, module item 5).
+# * advance_lanes runs core/lane_driver.py's device loop over _step_core,
+#   the tensor core of run_iteration_batch (a CUDA graph on the card).
 """HEAT: explicit 2-D heat diffusion to steady state (LULESH/SP stand-in:
 structured-grid time stepping with strong smoothing dynamics).
 
@@ -55,12 +56,21 @@ def _diffuse(u_flat: torch.Tensor, pin_mask: torch.Tensor, g: int, steps: int,
     """``steps`` explicit steps, the pins set to 1.0 after each; leading
     dimensions of ``u_flat`` are lanes, ``pin_mask`` is one lane's."""
     # dt as float32, as jit folds the static Python float into the program
-    dt_t = torch.tensor(np.float32(dt), dtype=u_flat.dtype, device=u_flat.device)
+    # (fills, not host copies: the lane driver's CUDA graph captures them)
+    dt_t = torch.full((), float(np.float32(dt)), dtype=u_flat.dtype, device=u_flat.device)
     one = torch.ones((), dtype=u_flat.dtype, device=u_flat.device)
     u = u_flat
     for _ in range(steps):
         u = torch.where(pin_mask, one, torch.addcmul(u, _laplace(u, g), dt_t))
     return u
+
+
+def _step_core(u_b: torch.Tensor, pin_mask: torch.Tensor, g: int, steps: int,
+               dt: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One iteration on stacked lanes: (flux, u) of the flux, update and pin
+    regions (the pin region re-imposes the sources after the update)."""
+    flux = _laplace(u_b, g)
+    return flux, torch.where(pin_mask, 1.0, _diffuse(u_b, pin_mask, g, steps, dt))
 
 
 class HeatApp(IterativeApp):
@@ -159,6 +169,7 @@ class HeatApp(IterativeApp):
     # The step and the Laplacian are elementwise and stencil ops only, and
     # abs/max are exact, so each lane is bitwise the serial one.
     supports_batched_step = True
+    supports_lane_driver = True
 
     def _stack(self, states, name: str) -> torch.Tensor:
         return as_tensor(np.stack([as_numpy(s[name]) for s in states]), self.device)
@@ -177,12 +188,9 @@ class HeatApp(IterativeApp):
         )
 
     def run_iteration_batch(self, states):
-        u_b = self._stack(states, "u")
-        mask = self._pin_mask(states[0]["pins"])
-        flux_b = as_numpy(_laplace(u_b, self.grid))
-        # the pin region re-imposes the sources after the update
-        u_new = as_numpy(torch.where(mask, 1.0, _diffuse(u_b, mask, self.grid,
-                                                         self.steps_per_iter, self.dt)))
+        flux_b, u_new = _step_core(self._stack(states, "u"), self._pin_mask(states[0]["pins"]),
+                                   self.grid, self.steps_per_iter, self.dt)
+        flux_b, u_new = as_numpy(flux_b), as_numpy(u_new)
         out = []
         for i, s in enumerate(states):
             s = dict(s)
@@ -221,3 +229,29 @@ class HeatApp(IterativeApp):
             VerifyResult(bool(np.isfinite(r) and r < self.tol), r)
             for r in self._residuals_batch(states)
         ]
+
+    def advance_lanes(self, states, its, stop):
+        from ..core.lane_driver import LaneSpec, cached_driver, f32_monotone_cutoff
+
+        g, steps, dt, n_iters = self.grid, self.steps_per_iter, self.dt, self.n_iters
+        cutoff = float(f32_monotone_cutoff(lambda v: v < self.tol * 0.5))
+
+        def step(consts, a):
+            flux, u = _step_core(a["u"], consts["pin_mask"], g, steps, dt)
+            return {"u": u, "flux": flux, "k": a["k"] + 1}
+
+        def check(consts, a, it):
+            r = _laplace(a["u"], g).abs().masked_fill(consts["pin_mask"], 0.0).amax(dim=1)
+            over = it >= n_iters
+            fin = torch.isfinite(r)
+            conv = over | (fin & (r <= cutoff))
+            suspect = ~over & ~fin  # serial converged() would raise
+            return conv, suspect
+
+        key = ("heat", g, self.tol, n_iters, self._seed, dt, steps, self.device)
+        drv = cached_driver(key, lambda: LaneSpec(
+            carry=("u", "flux", "k"),
+            consts=lambda s0: {"pin_mask": self._pin_mask(s0["pins"])},
+            step=step, check=check, device=self.device,
+        ))
+        return drv.advance(states, its, stop)

@@ -12,7 +12,9 @@
 #   and the inertia's sum is common.tree_sum: both agree with JAX's to about
 #   1e-6 relative (other summation orders), and each lane is bitwise the
 #   serial one.  counts are sums of ones, exact in any order.
-# * No lane driver (supports_lane_driver stays False; ROADMAP, module item 5).
+# * advance_lanes runs core/lane_driver.py's device loop over _step_core,
+#   the tensor core of run_iteration_batch (a CUDA graph on the card;
+#   one_hot with its class count given reads nothing back on the card).
 """k-means (Rodinia analogue, data mining).
 
 Two regions: assignment and centroid update.  The points are read-only; the
@@ -59,6 +61,15 @@ def _update(points: torch.Tensor, assign: torch.Tensor, centroids: torch.Tensor,
 
 def _inertia(points: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     return tree_sum(_sq_dist(points, centroids).amin(dim=1))
+
+
+def _step_core(points: torch.Tensor, cent_b: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One iteration on stacked centroid tables, one lane at a time:
+    (assignments (L, n) int32, new centroids (L, k, d))."""
+    assign = [_assign(points, c) for c in cent_b]
+    return (torch.stack(assign),
+            torch.stack([_update(points, a, c, k) for a, c in zip(assign, cent_b)]))
 
 
 class KMeansApp(IterativeApp):
@@ -151,6 +162,7 @@ class KMeansApp(IterativeApp):
     # centroid tables, take lane 0's points and run the serial functions
     # one lane at a time (the products and sums as the serial path does them).
     supports_batched_step = True
+    supports_lane_driver = True
 
     def batched_kernels(self):
         from ..core.regions import BatchedKernel
@@ -159,27 +171,21 @@ class KMeansApp(IterativeApp):
         pts = self._t(s["points"])
         c3 = self._t(np.stack([s["centroids"]] * 3))
         k = self.n_clusters
-
-        def step_batch(cb):
-            assign = [_assign(pts, c) for c in cb]
-            return (torch.stack(assign),
-                    torch.stack([_update(pts, a, c, k) for a, c in zip(assign, cb)]))
-
         return (
-            BatchedKernel("step_batch", step_batch, (c3,), {0: 0}),
+            BatchedKernel("step_batch", lambda cb: _step_core(pts, cb, k), (c3,), {0: 0}),
             BatchedKernel("inertia_batch", lambda cb: torch.stack([_inertia(pts, c) for c in cb]),
                           (c3,), {0: 0}),
         )
 
     def run_iteration_batch(self, states):
         pts = self._t(as_numpy(states[0]["points"]))
+        cent_b = self._t(np.stack([as_numpy(s["centroids"]) for s in states]))
+        assign_b, cent_new = (as_numpy(v) for v in _step_core(pts, cent_b, self.n_clusters))
         out = []
-        for s in states:
-            c = self._t(as_numpy(s["centroids"]))
-            a = _assign(pts, c)
+        for i, s in enumerate(states):
             s = dict(s)
-            s["assign"] = as_numpy(a)
-            s["centroids"] = as_numpy(_update(pts, a, c, self.n_clusters))
+            s["assign"] = assign_b[i]
+            s["centroids"] = cent_new[i]
             s["k"] = s["k"] + 1
             out.append(s)
         return out
@@ -190,3 +196,25 @@ class KMeansApp(IterativeApp):
         pts = self._t(as_numpy(states[0]["points"]))
         return [self._accept(float(_inertia(pts, self._t(as_numpy(s["centroids"])))))
                 for s in states]
+
+    def advance_lanes(self, states, its, stop):
+        from ..core.lane_driver import LaneSpec, cached_driver
+
+        n_iters, k = self.n_iters, self.n_clusters
+
+        def step(consts, a):
+            assign_b, cent_new = _step_core(consts["points"], a["centroids"], k)
+            return {"centroids": cent_new, "assign": assign_b, "k": a["k"] + 1}
+
+        def check(consts, a, it):
+            conv = it >= n_iters  # counter-only converged(), never raises
+            return conv, torch.zeros_like(conv)
+
+        key = ("kmeans", self.n_points, self.n_dims, k, self.n_iters, self._seed,
+               self.cluster_scale, self.device)
+        drv = cached_driver(key, lambda: LaneSpec(
+            carry=("centroids", "assign", "k"),
+            consts=lambda s0: {"points": self._t(as_numpy(s0["points"]))},
+            step=step, check=check, device=self.device,
+        ))
+        return drv.advance(states, its, stop)

@@ -14,7 +14,8 @@
 # * Batched lanes run the serial spmv one lane at a time (no bmm, no
 #   batched matmul: another reduction tiling), and the damped update on the
 #   stack (elementwise, and a per-row tree_sum).
-# * No lane driver (supports_lane_driver stays False; ROADMAP, module item 5).
+# * advance_lanes runs core/lane_driver.py's device loop over _step_core,
+#   the tensor core of run_iteration_batch (a CUDA graph on the card).
 """PageRank: damped power iteration on a random directed graph.
 
 Analogue of an irregular graph-analytics workload (the paper's spectrum
@@ -55,11 +56,21 @@ def _damped(y: torch.Tensor, rank: torch.Tensor, damping: float
     dimensions are lanes."""
     n = rank.shape[-1]
     # jit passes the Python float as a float32 operand, and computes the
-    # constant term in float32 from it
-    d = torch.tensor(np.float32(damping), dtype=y.dtype, device=y.device)
-    c = (1.0 - d) / torch.tensor(np.float32(n), device=y.device)
+    # constant term in float32 from it (fills, not host copies: the lane
+    # driver's CUDA graph captures them)
+    d = torch.full((), float(np.float32(damping)), dtype=y.dtype, device=y.device)
+    c = (1.0 - d) / torch.full((), float(n), dtype=y.dtype, device=y.device)
     new = torch.addcmul(c.expand_as(y), y, d)
     return new, tree_sum((new - rank).abs())
+
+
+def _step_core(links: torch.Tensor, rank_b: torch.Tensor, damping: float
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One iteration on stacked lanes: (y, new rank, delta (L,)); the spmv
+    one lane at a time, the damped update on the stack."""
+    y_b = torch.stack([_spmv(links, r) for r in rank_b])
+    new_b, deltas = _damped(y_b, rank_b, damping)
+    return y_b, new_b, deltas
 
 
 class PageRankApp(IterativeApp):
@@ -164,6 +175,7 @@ class PageRankApp(IterativeApp):
     # restart lane carries the identical init-rebuilt matrix — the batched
     # hooks stack only the per-lane vectors and take lane 0's links.
     supports_batched_step = True
+    supports_lane_driver = True
 
     def _spmv_batch(self, links: torch.Tensor, rank_b: torch.Tensor) -> torch.Tensor:
         return torch.stack([_spmv(links, r) for r in rank_b])
@@ -184,8 +196,8 @@ class PageRankApp(IterativeApp):
 
     def run_iteration_batch(self, states):
         rank_b = self._t(np.stack([as_numpy(s["rank"]) for s in states]))
-        y_b = self._spmv_batch(self._t(as_numpy(states[0]["links"])), rank_b)
-        new_b, deltas = _damped(y_b, rank_b, self.damping)
+        y_b, new_b, deltas = _step_core(self._t(as_numpy(states[0]["links"])), rank_b,
+                                        self.damping)
         y_b, new_b, deltas = as_numpy(y_b), as_numpy(new_b), as_numpy(deltas)
         out = []
         for i, s in enumerate(states):
@@ -208,3 +220,33 @@ class PageRankApp(IterativeApp):
             r = self._residual_of(y_rows[i], rank_rows[i])
             out.append(VerifyResult(bool(np.isfinite(r) and r < self.tol), r))
         return out
+
+    def advance_lanes(self, states, its, stop):
+        from ..core.lane_driver import LaneSpec, cached_driver, f32_monotone_cutoff
+
+        d, n_iters = self.damping, self.n_iters
+        # the serial decision 0 < delta < tol/2 is a monotone float64
+        # predicate of the carried float32 delta, so it folds to an exact
+        # device comparison against the cutoff
+        cutoff = float(f32_monotone_cutoff(lambda v: v < self.tol * 0.5))
+
+        def step(consts, a):
+            y, new, delta = _step_core(consts["links"], a["rank"], d)
+            return {"rank": new, "y": y, "delta": delta[:, None], "k": a["k"] + 1}
+
+        def check(consts, a, it):
+            dl = a["delta"][:, 0]
+            over = it >= n_iters
+            fin = torch.isfinite(dl)
+            conv = over | (fin & (dl > 0) & (dl <= cutoff))
+            suspect = ~over & ~fin  # serial converged() would raise
+            return conv, suspect
+
+        key = ("pagerank", self.n_nodes, self.out_degree, d, self.tol, n_iters, self._seed,
+               self.device)
+        drv = cached_driver(key, lambda: LaneSpec(
+            carry=("rank", "y", "delta", "k"),
+            consts=lambda s0: {"links": self._t(as_numpy(s0["links"]))},
+            step=step, check=check, device=self.device,
+        ))
+        return drv.advance(states, its, stop)

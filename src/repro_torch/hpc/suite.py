@@ -1,8 +1,7 @@
-# Port of repro/hpc/suite.py: the registry holds the ported apps only (the
-# HPC apps of hpc/__init__.py, and the model stack's lm-train and decode,
-# registered lazily), and get_app of an app of the JAX suite that is not
-# ported yet raises, naming its ROADMAP item.  CI_SIZES, BENCH_SIZES,
-# FAULT_SWEEP_APPS and the cache sizing are copied unchanged.
+# Port of repro/hpc/suite.py: the registry holds the HPC apps of
+# hpc/__init__.py and the model stack's lm-train and decode, registered
+# lazily.  CI_SIZES, BENCH_SIZES, FAULT_SWEEP_APPS and the cache sizing are
+# copied unchanged.
 """Suite-level helpers: canonical cache sizing + CI-sized app instances.
 
 The cache-capacity : working-set ratio is the lever that controls how long
@@ -24,11 +23,8 @@ from . import _REGISTRY as _HPC_REGISTRY
 _APP_FACTORIES: Dict[str, Callable[..., IterativeApp]] = dict(_HPC_REGISTRY)
 
 #: apps of the JAX package's registry that the port does not have yet, with
-#: the ROADMAP item that ports each
-NOT_PORTED: Dict[str, str] = {
-    "montecarlo": "module item 4.5",
-    "mg": "module item 4.6",
-}
+#: the ROADMAP item that ports each (none left)
+NOT_PORTED: Dict[str, str] = {}
 
 
 def register_app(name: str, factory: Callable[..., IterativeApp]) -> None:

@@ -378,7 +378,7 @@ def _campaign_entry(app):
             "crash_iters": [r.iter_idx for r in camp.records]}
 
 
-@pytest.mark.parametrize("name", ["heat", "cg", "pagerank", "kmeans"])
+@pytest.mark.parametrize("name", ["heat", "cg", "pagerank", "kmeans", "mg", "montecarlo"])
 def test_hpc_campaign_on_device_reproduces_golden(name):
     from repro_torch.hpc.suite import ci_app
 
@@ -413,3 +413,62 @@ def test_lm_train_gradient_on_device_matches_cpu(dtype, tol):
             np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
         else:
             assert np.linalg.norm(got - want) <= tol * np.linalg.norm(want)
+
+
+def _serial_phase_a(app, s0, it, stop):
+    s = dict(s0)
+    while it < stop:
+        s = app.run_iteration(s)
+        it += 1
+        if app.converged(s, it):
+            break
+    return s, it
+
+
+@pytest.mark.parametrize("name,field", [("cg", "x"), ("heat", "u"), ("kmeans", "centroids"),
+                                        ("pagerank", "rank"), ("mg", "u"),
+                                        ("montecarlo", "sums")])
+def test_lane_driver_graph_equals_eager_chunk_and_serial(name, field, monkeypatch):
+    """advance_lanes on the card (the captured graph; montecarlo's bespoke
+    replay) equals the same driver's eager chunks and the serial loop on
+    the card, bit for bit, for perturbed lanes entering at scattered
+    iterations."""
+    from repro_torch.core import lane_driver
+    from repro_torch.hpc.suite import ci_app
+
+    monkeypatch.setattr(lane_driver, "_DRIVER_CACHE", {})
+    app = ci_app(name, device="cuda")
+    s, traj, stop = app.init(0), [], app.n_iters
+    traj.append(s)
+    for it in range(1, app.n_iters + 1):
+        s = app.run_iteration(s)
+        traj.append(s)
+        if app.converged(s, it):
+            stop = it
+            break
+    rng = np.random.default_rng(7)
+    entry = sorted({1, stop // 3, stop // 2, stop - 1, stop})
+    lanes = []
+    for ei in entry:
+        lane = {k: np.array(v, copy=True) for k, v in traj[ei].items()}
+        lane[field] = (lane[field] + rng.standard_normal(lane[field].shape) * 1e-5
+                       ).astype(lane[field].dtype)
+        lanes.append(lane)
+    replays = lane_driver.STATS.replays
+    got, its, oks = app.advance_lanes(lanes, entry, stop)
+    assert all(oks)
+    runs = [(got, its)]
+    if name != "montecarlo":
+        assert lane_driver.STATS.replays > replays
+        (drv,) = lane_driver._DRIVER_CACHE.values()
+        eager = lane_driver.LaneDriver(drv.spec)
+        eager.graphs = False
+        e_states, e_its, e_oks = eager.advance(lanes, entry, stop)
+        assert all(e_oks)
+        runs.append((e_states, e_its))
+    for lane, ei, i in zip(lanes, entry, range(len(lanes))):
+        want, wit = _serial_phase_a(app, lane, ei, stop)
+        for states, out_its in runs:
+            assert out_its[i] == wit
+            for k in want:
+                assert np.asarray(states[i][k]).tobytes() == np.asarray(want[k]).tobytes(), (i, k)

@@ -1,15 +1,16 @@
-"""The port's heat, cg, pagerank and kmeans apps against the JAX package's
-apps and pins, on the CPU.
+"""The port's heat, cg, pagerank, kmeans, mg and montecarlo apps against the
+JAX package's apps and pins, on the CPU.
 
 Per app: the golden run's length equals JAX's; the CI campaign reproduces
 the app's pin in ``tests/golden/campaign_goldens.json`` under both engines,
 and its RecomputeProfile the pinned profile; kmeans and pagerank reproduce
-their torn-write pins; ``run_workflow`` gives the JAX plan (pinned below:
+their torn-write pins, and so does mg; ``run_workflow`` gives the JAX plan (pinned below:
 the JAX package's run_workflow on ``ci_app(name)`` with
 ``WorkflowConfig(n_tests=24, cache=default_cache(app), seed=0)``, jax 0.9.0
 on the CPU).  Within the port: a batched lane is bitwise the serial lane,
 and a tensor state steps to the same bytes as a numpy state.  The step
-functions against JAX's are in ``tests/test_torch_{heat,cg,pagerank,kmeans}.py``.
+functions against JAX's are in
+``tests/test_torch_{heat,cg,pagerank,kmeans,mg,montecarlo}.py``.
 """
 import json
 import os
@@ -21,19 +22,22 @@ import torch
 from repro.hpc.suite import ci_app as jax_ci_app
 from repro_torch.core import CrashTester, PersistPlan, RecomputeProfile, get_fault_model
 from repro_torch.core.workflow import WorkflowConfig, run_workflow
-from repro_torch.hpc.suite import ci_app, default_cache, get_app
+from repro_torch.hpc.suite import NOT_PORTED, ci_app, default_cache, get_app
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "golden", "campaign_goldens.json")
-APPS = ("heat", "cg", "pagerank", "kmeans")
+APPS = ("heat", "cg", "pagerank", "kmeans", "mg", "montecarlo")
 #: the JAX package's plans (objects, region frequencies)
 JAX_PLANS = {
     "heat": (("u",), {}),
     "cg": (("q",), {2: 1, 3: 1}),
     "pagerank": (("rank",), {0: 1, 1: 1, 2: 1}),
     "kmeans": (("centroids",), {0: 1, 1: 1}),
+    "mg": (("u",), {1: 1, 3: 1}),
+    "montecarlo": (("counts", "sums"), {0: 1, 1: 1}),
 }
 #: the float object each lane test perturbs
-PERTURB = {"heat": "u", "cg": "x", "pagerank": "rank", "kmeans": "centroids"}
+PERTURB = {"heat": "u", "cg": "x", "pagerank": "rank", "kmeans": "centroids", "mg": "u",
+           "montecarlo": "sums"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -124,7 +128,7 @@ def test_recompute_profile_reproduces_golden(name):
     assert got == _goldens()["profiles"][name]
 
 
-@pytest.mark.parametrize("name", ["kmeans", "pagerank"])
+@pytest.mark.parametrize("name", ["kmeans", "pagerank", "mg"])
 def test_torn_write_campaign_reproduces_golden(name):
     camp, _ = _campaign(ci_app(name, device="cpu"), fault_name="torn-write")
     assert _entry(camp) == _goldens()["torn_write_apps"][name]
@@ -172,5 +176,8 @@ def test_tensor_state_steps_like_numpy_state(name):
 
 @pytest.mark.parametrize("name,item", [("montecarlo", "4.5"), ("mg", "4.6")])
 def test_unported_apps_name_their_items(name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP, module item {item}"):
-        get_app(name, device="cpu")
+    """The apps of module items 4.5 and 4.6 are ported: registered, and no
+    longer named in NOT_PORTED."""
+    assert name not in NOT_PORTED, f"module item {item}"
+    app = get_app(name, device="cpu")
+    assert app.name == name and app.supports_lane_driver

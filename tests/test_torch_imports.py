@@ -35,7 +35,8 @@ def test_no_jax_or_reference_imports_in_port_sources():
     assert len(files) > 20
     names = {os.path.relpath(f, SRC) for f in files}
     for mod in ("hpc/heat.py", "hpc/cg.py", "hpc/pagerank.py", "hpc/kmeans.py",
-                "models/train_app.py"):
+                "models/train_app.py", "hpc/mg.py", "hpc/montecarlo.py", "hpc/threefry.py",
+                "core/lane_driver.py"):
         assert os.path.join("repro_torch", mod) in names, mod
     for path in files:
         with open(path) as f:
@@ -67,15 +68,15 @@ def test_port_campaign_leaves_jax_unloaded():
 
 
 def test_port_campaigns_of_the_new_apps_leave_jax_unloaded():
-    """A 2-test campaign of each app of the slice (heat, cg, pagerank,
-    kmeans, lm-train) in a fresh interpreter loads neither jax nor anything
-    of the JAX package."""
+    """A 2-test campaign of each app of slices 6 and 7 (heat, cg, pagerank,
+    kmeans, lm-train, mg, montecarlo) in a fresh interpreter loads neither
+    jax nor anything of the JAX package."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
         "from repro_torch.core import CrashTester, PersistPlan\n"
         "from repro_torch.hpc.suite import ci_app, default_cache\n"
-        "for name in ('heat', 'cg', 'pagerank', 'kmeans', 'lm-train'):\n"
+        "for name in ('heat', 'cg', 'pagerank', 'kmeans', 'lm-train', 'mg', 'montecarlo'):\n"
         "    app = ci_app(name, device='cpu')\n"
         "    camp = CrashTester(app, PersistPlan.none(), default_cache(app), seed=0).run_campaign(2)\n"
         "    assert len(camp.records) == 2, name\n"
@@ -124,7 +125,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ci_app("sor")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ci_app("decode")
-    for name in ("heat", "cg", "pagerank", "kmeans", "lm-train"):
+    for name in ("heat", "cg", "pagerank", "kmeans", "lm-train", "mg", "montecarlo"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ci_app(name)
         assert ci_app(name, device="cpu").device == "cpu"
@@ -157,11 +158,13 @@ def test_resolve_device():
 
 
 def test_unported_apps_name_their_roadmap_item():
+    """Every app of the JAX suite is registered; none is left unported."""
+    from repro.hpc.suite import app_names as jax_app_names
     from repro_torch.hpc.suite import CI_SIZES, NOT_PORTED, app_names, ci_app
 
-    assert app_names() == ("cg", "decode", "heat", "kmeans", "lm-train", "pagerank", "sor")
-    assert NOT_PORTED == {"montecarlo": "module item 4.5", "mg": "module item 4.6"}
-    assert set(NOT_PORTED) | set(app_names()) == set(CI_SIZES)
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP, {NOT_PORTED[name]}"):
-            ci_app(name, device="cpu")
+    assert app_names() == ("cg", "decode", "heat", "kmeans", "lm-train", "mg", "montecarlo",
+                           "pagerank", "sor")
+    assert NOT_PORTED == {}
+    assert set(app_names()) == set(CI_SIZES) == set(jax_app_names())
+    for name in app_names():
+        assert ci_app(name, device="cpu").name == name
