@@ -83,7 +83,25 @@ Phases, in order; any failure ends the run with a nonzero exit:
    the driver and with the host loop (ms and host syncs; information);
 14. mg at grid 8192 and montecarlo at 2**26 pairs per iteration deployed as
    phase 12 deploys, each flushing its plan's objects after the two
-   regions its plan names (so twice per iteration).
+   regions its plan names (so twice per iteration);
+15. the trainer under failures (``repro_torch.launch.train``) at
+   StableLM-2-1.6B's full width, its depth cut to 4 of 24 layers (616 M
+   parameters; bf16 weights, f32 moments, grad_accum 2; batch 8 of 64
+   tokens): (a) 24 steps with no flush and no checkpoint; (b) 24 steps
+   with asynchronous delta flushes of the parameters and step every 4
+   (every arena image checked against its flush's clone), checkpoints
+   every 8 (the stretched Young interval of --mtbf 6 --t-chk 1
+   --recomputability 0.82) and a crash at 12, restored from the arena at
+   12 with the parameters equal to its image; (c) the arena deleted, a
+   restart to 28 restored from the local checkpoint of step 24; (d) the
+   local tier deleted too, from the remote tier; (e) with the arena back
+   and --verify-loss-max 0, from the checkpoint; each restored state
+   equal to the bytes on disk; ``delta_snapshot`` once per tensor leaf
+   and delta flush; the persistence tax, the flush split, the checkpoint
+   writes and the measured T_chk with efficiency_with/without;
+16. ``serve.fleet_report`` on phase 7's uninterrupted run at the
+   launcher's fleet defaults (4 replicas, MTBF 900 s, horizon 1800 s):
+   every policy's line, and request conservation for each.
 
 Every campaign's phase A goes through the apps' lane drivers; a driver that
 raises and falls back to the host loop fails the run.
@@ -96,6 +114,7 @@ import the port and exits with 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -117,6 +136,7 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import host_array, state_to_torch  # noqa: E402
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.core import (  # noqa: E402
+    POLICIES,
     CrashTester,
     EasyCrashManager,
     FlushPolicy,
@@ -140,7 +160,11 @@ from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_reference  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_reference  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.checkpoint import load_pytree, system_config_from_measurement  # noqa: E402
+from repro_torch.checkpoint.serialization import flatten_tree  # noqa: E402
+from repro_torch.core.efficiency import efficiency_with, efficiency_without  # noqa: E402
+from repro_torch.data import SyntheticLMStream  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.steps import make_decode_fn  # noqa: E402
 from repro_torch.models import init_cache, init_params, prefill  # noqa: E402
 from repro_torch.models.attention import _repeat_kv  # noqa: E402
@@ -217,6 +241,19 @@ RWKV_ARCH, RG_ARCH = "rwkv6-3b", "recurrentgemma-9b"
 #: RecurrentGemma-9B's (B, T, d_rnn)
 RWKV_SHAPE = (SERVE_PROMPTS, SERVE_PROMPT_LEN, 40, 64)
 RGLRU_SHAPE = (SERVE_PROMPTS, SERVE_PROMPT_LEN, 4096)
+#: the trainer (slice 8): StableLM-2-1.6B at full width with its depth cut
+#: from 24 layers to 4 (616,581,120 parameters; a checkpoint of bf16
+#: parameters and f32 moments is about 6.17 GB), at the launcher's batch 8
+#: of 64 tokens; 24 steps, a delta flush every 4, a crash at 12, then
+#: restarts to 28 steps.  --mtbf 6 --t-chk 1 --recomputability 0.82 put the
+#: stretched Young interval at sqrt(2 * 1 * 6 / 0.18) = 8.16 -> 8 steps.
+TRAIN_ARCH, TRAIN_LAYERS = "stablelm-1.6b", 4
+TRAIN_STEPS, TRAIN_MORE_STEPS, TRAIN_FLUSH_EVERY, TRAIN_CRASH_AT = 24, 28, 4, 12
+TRAIN_CKPT_FLAGS = ("--mtbf", "6", "--t-chk", "1", "--recomputability", "0.82")
+TRAIN_CKPT_EVERY = 8
+#: the launcher's defaults, at which efficiency_with/without are evaluated
+TRAIN_EFF_MTBF, TRAIN_EFF_R = 300.0, 0.82
+TRAIN_WORKDIR = os.path.join(ROOT, "build", "chip_smoke_train")
 
 
 def log(msg: str) -> None:
@@ -927,6 +964,8 @@ def phase_serve(dev: str) -> dict:
         "flash_launches": flash_launches,
         "delta_launches": delta_launches,
         "decode_profile": profile,
+        # what serve.fleet_report reads of a run's stats (phase 16)
+        "fleet_stats": {k: clean[k] for k in ("decode_steps", "tokens_per_s", "bytes_written")},
     }
     log(f"[serve] prefill {out['prefill_ms']:.1f} ms, decode {out['decode_ms_per_step']:.2f} "
         f"ms/step, flush {out['flush_ms_mean']:.1f} ms mean of {n_flush} (mask "
@@ -940,24 +979,17 @@ def phase_serve(dev: str) -> dict:
     return out
 
 
-def _profile_decode(cfg, params, prompts, dev: str, steps: int = 8, name: str = "serve") -> dict:
-    """Device time of ``steps`` decode steps from torch.profiler (CUDA
-    kernels' self time) against their host-clock wall time: the device's
-    idle share, and the kernels that take the most device time."""
-    logits, pcache = prefill(cfg, params, prompts, impl="kernel")
-    max_len = SERVE_PROMPT_LEN + steps + 1
-    cache = serve._splice_cache(cfg, init_cache(cfg, SERVE_PROMPTS, max_len, dev), pcache,
-                                SERVE_PROMPT_LEN)
-    step_fn = make_decode_fn(cfg)
-    token = logits.argmax(dim=-1).to(torch.int32)[:, None]
-    del logits, pcache
-    token, cache = step_fn(params, cache, token)  # warm-up
-    torch.cuda.synchronize()
+def _kernel_profile(fn, steps: int) -> dict:
+    """``fn()`` run ``steps`` times under torch.profiler: the host-clock wall
+    time (synchronized), the CUDA kernels' self time, the device's idle
+    share, the kernels that take the most device time, and the share of
+    matrix products (cuBLAS/CUTLASS kernels) in the device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            token, cache = step_fn(params, cache, token)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []  # kernels only: an op's row repeats the time of the kernels it launched
@@ -971,12 +1003,33 @@ def _profile_decode(cfg, params, prompts, dev: str, steps: int = 8, name: str = 
             rows.append((dev_us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    out = {"steps": steps, "wall_ms": wall_ms, "device_ms": device_ms,
-           "idle_share": (1 - device_ms / wall_ms) if device_ms else None,
-           "top": [(name[:60], round(ms, 3), n) for ms, name, n in rows[:6]]}
-    if device_ms:
-        log(f"[{name}] profile of {steps} decode steps: wall {wall_ms:.1f} ms, device "
-            f"{device_ms:.1f} ms, idle share {out['idle_share']:.1%}; top kernels (ms, "
+    gemm = re.compile(r"gemm|xmma|cutlass|nvjet", re.I)  # cuBLAS's and CUTLASS's names
+    gemm_ms = sum(ms for ms, name, _ in rows if gemm.search(name))
+    return {"steps": steps, "wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": (1 - device_ms / wall_ms) if device_ms else None,
+            "gemm_share": (gemm_ms / device_ms) if device_ms else None,
+            "top": [(name[:60], round(ms, 3), n) for ms, name, n in rows[:6]]}
+
+
+def _profile_decode(cfg, params, prompts, dev: str, steps: int = 8, name: str = "serve") -> dict:
+    """Device time of ``steps`` decode steps against their wall time: the
+    device's idle share, and the kernels that take the most device time."""
+    logits, pcache = prefill(cfg, params, prompts, impl="kernel")
+    max_len = SERVE_PROMPT_LEN + steps + 1
+    cache = serve._splice_cache(cfg, init_cache(cfg, SERVE_PROMPTS, max_len, dev), pcache,
+                                SERVE_PROMPT_LEN)
+    step_fn = make_decode_fn(cfg)
+    box = {"token": logits.argmax(dim=-1).to(torch.int32)[:, None], "cache": cache}
+    del logits, pcache
+
+    def one():
+        box["token"], box["cache"] = step_fn(params, box["cache"], box["token"])
+
+    one()  # warm-up
+    out = _kernel_profile(one, steps)
+    if out["device_ms"]:
+        log(f"[{name}] profile of {steps} decode steps: wall {out['wall_ms']:.1f} ms, device "
+            f"{out['device_ms']:.1f} ms, idle share {out['idle_share']:.1%}; top kernels (ms, "
             f"launches): {out['top']}")
     else:
         log(f"[{name}] profile of decode steps: the profiler reported no device time "
@@ -1682,6 +1735,277 @@ def phase_deploy_slice7(dev: str, plans: dict) -> dict:
     return out
 
 
+# -------------------------------------------- 15. the trainer under failures
+def _train_args(workdir: str, *extra: str) -> argparse.Namespace:
+    return train.parser().parse_args([
+        "--arch", TRAIN_ARCH, "--full-size", "--persist-mode", "delta",
+        "--workdir", workdir, "--log-every", "1000000", *extra,
+    ])
+
+
+def _host_equals(host: np.ndarray, live: torch.Tensor, stream=None) -> bool:
+    """Whether a host array holds a tensor's bytes (compared on its device)."""
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        img = torch.from_numpy(np.ascontiguousarray(host).reshape(-1).view(np.uint8))
+        img = img.to(live.device)
+        return bool(img.numel() == live.numel() * live.element_size()
+                    and torch.equal(img, live.reshape(-1).view(torch.uint8)))
+
+
+class _FlushCheck:
+    """on_flushed hook: every arena image equals the bytes its flush cloned.
+    Runs on the manager's writer thread, on a stream of its own (the clone
+    is complete: the flush already copied it to the host)."""
+
+    def __init__(self):
+        self.stream = torch.cuda.Stream()
+        self.steps = []
+
+    def __call__(self, step: int, payload: dict, arena: NVMArena) -> None:
+        for name, leaf in payload.items():
+            img = arena.peek(name)
+            same = (img is not None and (
+                _host_equals(img, leaf, self.stream) if isinstance(leaf, torch.Tensor)
+                else img.tobytes() == np.asarray(leaf).tobytes()))
+            if not same:
+                raise AssertionError(f"flush at step {step}: arena image of {name!r} "
+                                     "differs from the flushed clone")
+        self.steps.append(step)
+
+
+def _check_state_equals(label: str, state: dict, flat_host: dict) -> None:
+    flat = flatten_state(state)
+    if set(flat) != set(flat_host):
+        raise AssertionError(f"{label}: leaves {sorted(set(flat) ^ set(flat_host))} differ")
+    for name, live in flat.items():
+        if not _host_equals(flat_host[name], live):
+            raise AssertionError(f"{label}: {name!r} differs from the stored bytes")
+
+
+def _train_run(label: str, args, cfg, check: _FlushCheck, expect: tuple) -> dict:
+    """One train.run with its restore checked against the bytes it came from
+    (``expect``: source and step) and delta_snapshot's launches counted."""
+    arena_dir = os.path.join(args.workdir, "arena")
+    restored = {}
+
+    def on_restore(state, step, source):
+        restored.update(source=source, step=step)
+        if source == "easycrash":
+            arena = NVMArena.reattach(arena_dir)
+            if int(arena.get("__step__")) != step:
+                raise AssertionError(f"{label}: restored step {step} != the arena's")
+            _check_state_equals(f"{label} (arena)", state["params"],
+                                {k[len("params/"):]: arena.get(k) for k in arena.names()
+                                 if k.startswith("params/")})
+        elif source == "checkpoint":
+            for tier in ("ckpt_local", "ckpt_remote"):
+                d = os.path.join(args.workdir, tier, f"step_{step:010d}")
+                if os.path.exists(os.path.join(d, "manifest.json")):
+                    restored["tier"] = tier
+                    _check_state_equals(f"{label} ({tier})", state,
+                                        flatten_tree(load_pytree(d)))
+                    break
+            else:
+                raise AssertionError(f"{label}: no checkpoint of step {step} on disk")
+
+    fresh = not os.path.exists(os.path.join(arena_dir, "manifest.json"))
+    dirty_block_mask.launches = 0
+    st = train.run(args, cfg, on_flushed=check, on_restore=on_restore)
+    st["delta_launches"] = dirty_block_mask.launches
+    if (restored["source"], restored["step"]) != expect:
+        raise AssertionError(f"{label}: restored from {restored['source']} at step "
+                             f"{restored['step']}, expected {expect}")
+    st["tier"] = restored.get("tier")
+    st["fresh_arena"] = fresh
+    return st
+
+
+def _check_delta_count(label: str, launches: int, leaves: int, flushes: int,
+                       fresh: bool) -> None:
+    """One launch per tensor leaf (the parameter leaves and step) and delta
+    flush; the first flush into a fresh arena compares nothing."""
+    want = leaves * (flushes - (1 if fresh and flushes else 0))
+    if launches != want:
+        raise AssertionError(f"{label}: delta_snapshot launched {launches} times, expected "
+                             f"{want} ({leaves} tensor leaves, {flushes} flushes)")
+
+
+def _profile_train_steps(cfg, dev: str, steps: int = 2) -> dict:
+    """Two warm train steps (no flush) under the profiler: wall and device
+    time, idle share, and the matrix products' share of the device time."""
+    args = _train_args(os.path.join(TRAIN_WORKDIR, "profile"), "--steps", str(TRAIN_STEPS))
+    _, data_cfg, step_fn = train.build(args, cfg)
+    stream = SyntheticLMStream(data_cfg)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(stream)[1].items()}
+               for _ in range(steps + 1)]
+    stream.close()
+    box = {"state": train.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0)),
+           "i": 0}
+
+    def one():
+        box["state"], m = step_fn(box["state"], batches[box["i"]])
+        box["i"] += 1
+        float(m["loss"])  # the trainer's per-step wait
+
+    one()  # warm-up
+    out = _kernel_profile(one, steps)
+    del box
+    torch.cuda.empty_cache()
+    if out["device_ms"]:
+        log(f"[train] profile of {steps} steps: wall {out['wall_ms']:.1f} ms, device "
+            f"{out['device_ms']:.1f} ms, idle share {out['idle_share']:.1%}, matrix products "
+            f"{out['gemm_share']:.1%} of device time; top kernels (ms, launches): {out['top']}")
+    else:
+        log("[train] profile: the profiler reported no device time (idle share not measured)")
+    return out
+
+
+def phase_train(dev: str) -> dict:
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    shutil.rmtree(TRAIN_WORKDIR, ignore_errors=True)
+    check = _FlushCheck()
+    shape = {}
+
+    def count(state, step, source):
+        shape["parameters"] = sum(int(x.numel()) for x in _leaves(state["params"]))
+        shape["leaves"] = 1 + sum(1 for _ in _leaves(state["params"]))  # and step
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # a warm-up (allocator, cuBLAS), then (a): no flush, no checkpoint
+        none = ("--flush-every", "1000000000", "--mtbf", "1e12")
+        train.run(_train_args(os.path.join(TRAIN_WORKDIR, "warm"), "--steps", "2", *none), cfg)
+        base = train.run(_train_args(os.path.join(TRAIN_WORKDIR, "base"),
+                                     "--steps", str(TRAIN_STEPS), *none), cfg, on_restore=count)
+        leaves = shape["leaves"]
+        log(f"[train] {TRAIN_ARCH} at {TRAIN_LAYERS} of {get_arch(TRAIN_ARCH).n_layers} layers, "
+            f"{shape['parameters']} parameters, {leaves} tensor leaves flushed")
+        profile = _profile_train_steps(cfg, dev)
+
+        # (b) async delta flushes every 4, checkpoints every 8, a crash at 12
+        wd = os.path.join(TRAIN_WORKDIR, "run")
+        arena_dir = os.path.join(wd, "arena")
+        flags = ("--flush-every", str(TRAIN_FLUSH_EVERY), *TRAIN_CKPT_FLAGS)
+        crash_args = _train_args(wd, "--steps", str(TRAIN_STEPS), *flags,
+                                 "--inject-failure-every", str(TRAIN_CRASH_AT))
+        dirty_block_mask.launches = 0
+        try:
+            train.run(crash_args, cfg, on_flushed=check)
+            raise AssertionError("the injected failure did not fire")
+        except train.SimulatedFailure as e:
+            log(f"[train] {e}; restarting")
+        _check_delta_count("(b) before the crash", dirty_block_mask.launches, leaves, 3, True)
+        if check.steps != [4, 8, 12]:
+            raise AssertionError(f"flushes landed at {check.steps}, not at 4, 8 and 12")
+        first_launches = dirty_block_mask.launches
+        run_b = _train_run("(b)", crash_args, cfg, check, ("easycrash", TRAIN_CRASH_AT))
+        if run_b["final_step"] != TRAIN_STEPS or run_b["checkpoint_every"] != TRAIN_CKPT_EVERY:
+            raise AssertionError(f"(b) ended at {run_b['final_step']} with checkpoints every "
+                                 f"{run_b['checkpoint_every']} steps")
+        log(f"[train] (b) restored from the arena at step {run_b['restore_step']}, the last "
+            f"flush issued before the crash; parameters equal to its image")
+
+        # (c) the arena lost; (d) the local tier too; (e) verify rejects the arena
+        shutil.rmtree(arena_dir)
+        more = ("--steps", str(TRAIN_MORE_STEPS), *flags)
+        run_c = _train_run("(c)", _train_args(wd, *more), cfg, check, ("checkpoint", TRAIN_STEPS))
+        shutil.rmtree(arena_dir)
+        shutil.rmtree(os.path.join(wd, "ckpt_local"))
+        run_d = _train_run("(d)", _train_args(wd, *more), cfg, check, ("checkpoint", TRAIN_STEPS))
+        if run_c["tier"] != "ckpt_local" or run_d["tier"] != "ckpt_remote":
+            raise AssertionError(f"(c) restored from {run_c['tier']}, (d) from {run_d['tier']}")
+        if not os.path.exists(os.path.join(arena_dir, "manifest.json")):
+            raise AssertionError("(d) left no arena for (e)")
+        run_e = _train_run("(e)", _train_args(wd, "--steps", str(TRAIN_STEPS), *flags,
+                                              "--verify-loss-max", "0"),
+                           cfg, check, ("checkpoint", TRAIN_STEPS))
+        log(f"[train] (c) restored from the local tier, (d) from the remote tier, (e) from "
+            f"the {run_e['tier']} after rejecting the arena; each equal to the stored bytes; "
+            f"every arena image equalled its flush's clone ({len(check.steps)} flushes)")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(TRAIN_WORKDIR, ignore_errors=True)
+
+    for label, st in (("(b)", run_b), ("(c)", run_c), ("(d)", run_d), ("(e)", run_e)):
+        _check_delta_count(label, st["delta_launches"], leaves, st["flushes"], st["fresh_arena"])
+    delta_launches = first_launches + sum(r["delta_launches"] for r in (run_b, run_c, run_d, run_e))
+    if delta_launches != leaves * 5:  # 8 and 12 before the crash; 16, 20, 24 after
+        raise AssertionError(f"delta_snapshot launched {delta_launches} times, not {leaves * 5}")
+
+    # the persistence tax: (b)'s steps (both halves, crash excluded) against (a)'s
+    ms_b = run_b["ms_per_step"]
+    tax = ms_b / base["ms_per_step"]
+    n_delta = run_b["flushes"]
+    split = {k: v / max(n_delta, 1) for k, v in run_b["flush_split_ms"].items()}
+    saves = run_b["checkpoint_save_s"]
+    t_chk = float(np.mean(saves))
+    t_s = max(0.0, 1.0 - base["ms_per_step"] / ms_b)
+    sysc = system_config_from_measurement(t_chk, run_b["checkpoint_bytes"], mtbf=TRAIN_EFF_MTBF)
+    out = {
+        "arch": TRAIN_ARCH, "layers": TRAIN_LAYERS, "parameters": shape["parameters"],
+        "ms_per_step_baseline": base["ms_per_step"],
+        "step_ms_baseline": base["step_ms"],
+        "ms_per_step_persist": ms_b,
+        "ms_per_step_persist_steps_only": run_b["ms_per_step_without_flush_calls"],
+        "step_ms_persist": run_b["step_ms"],
+        "persistence_tax": tax,
+        "flushes": n_delta, "flushes_skipped": run_b["flushes_skipped"],
+        "flush_call_ms": run_b["flush_call_ms"] / max(n_delta, 1),
+        "flush_split_ms_per_flush": split,
+        "bytes_per_delta_flush": run_b["bytes_written"] / max(n_delta, 1),
+        "delta_launches": delta_launches, "tensor_leaves": leaves,
+        "checkpoint_save_s": saves, "checkpoint_bytes": run_b["checkpoint_bytes"],
+        "checkpoint_call_ms": run_b["checkpoint_call_ms"],
+        "t_chk_s": t_chk, "t_s": t_s,
+        "efficiency_without": efficiency_without(sysc).efficiency,
+        "efficiency_with": efficiency_with(sysc, TRAIN_EFF_R, t_s=t_s).efficiency,
+        "restore_ms": {"easycrash": run_b["restore_ms"], "checkpoint_local": run_c["restore_ms"],
+                       "checkpoint_remote": run_d["restore_ms"],
+                       "checkpoint_after_reject": run_e["restore_ms"]},
+        "final_loss": run_b["final_loss"],
+        "step_profile": profile,
+        "peak_device_bytes": peak,
+        "seconds": time.perf_counter() - t_start,
+    }
+    log(f"[train] {out['ms_per_step_baseline']:.2f} ms/step without persistence, "
+        f"{ms_b:.2f} with async delta flushes every {TRAIN_FLUSH_EVERY} "
+        f"(tax {tax:.3f}x; steps alone {out['ms_per_step_persist_steps_only']:.2f})")
+    log(f"[train] flushes issued {n_delta}, skipped {out['flushes_skipped']}; per flush "
+        f"mask {split['mask_seconds']:.1f}, device-to-host {split['copy_seconds']:.1f}, "
+        f"arena {split['arena_seconds']:.1f} ms; {out['bytes_per_delta_flush']:.0f} bytes "
+        f"per flush; delta_snapshot launches {delta_launches} = {leaves} leaves x 5 delta flushes")
+    log(f"[train] checkpoints: {len(saves)} saves of {out['checkpoint_bytes']} bytes, "
+        f"{', '.join(f'{x:.2f}' for x in saves)} s; T_chk {t_chk:.2f} s, t_s {t_s:.4f}; at "
+        f"MTBF {TRAIN_EFF_MTBF:.0f} s efficiency without EasyCrash "
+        f"{out['efficiency_without']:.4f}, with {out['efficiency_with']:.4f}")
+    log(f"[train] restore ms: {json.dumps(out['restore_ms'])}; peak device memory {peak} "
+        f"bytes; phase {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------------------------------- 16. serve --fleet
+def phase_fleet(served: dict) -> dict:
+    """fleet_report on phase 7's uninterrupted StableLM-2-1.6B run, at the
+    launcher's fleet defaults."""
+    t0 = time.perf_counter()
+    args = _serve_args(os.path.join(SERVE_WORKDIR, "fleet"))
+    doc = serve.fleet_report(served["fleet_stats"], args)
+    if set(doc) != set(POLICIES):
+        raise AssertionError(f"fleet policies {sorted(doc)} != {sorted(POLICIES)}")
+    for policy, p in doc.items():
+        if p["arrived"] != p["served"] + p["dropped"] + p["in_flight"]:
+            raise AssertionError(f"fleet {policy}: requests not conserved: {p['arrived']} != "
+                                 f"{p['served']} + {p['dropped']} + {p['in_flight']}")
+    out = {policy: {k: p[k] for k in ("goodput", "dropped", "arrived", "slo_violation_frac",
+                                      "latency_p99", "n_failures")}
+           for policy, p in doc.items()}
+    log(f"[fleet] {args.fleet_replicas} replicas, MTBF {args.fleet_mtbf:.0f} s, horizon "
+        f"{args.fleet_horizon:.0f} s; requests conserved for every policy; "
+        f"{time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def _tree_map(tree, fn):
     return {k: _tree_map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
@@ -1744,7 +2068,16 @@ def main() -> int:
     slice7_deploy = phase_deploy_slice7(dev, slice7["plans"])
     suite.update(slice7_deploy)
     log(f"[slice7] characterization {t1 - t0:.1f} s, deployments "
-        f"{time.perf_counter() - t1:.1f} s; the whole run {time.perf_counter() - t_start:.1f} s")
+        f"{time.perf_counter() - t1:.1f} s")
+
+    t0 = time.perf_counter()
+    trained = phase_train(dev)
+    log(f"[train] summary {json.dumps(trained)}")
+    t1 = time.perf_counter()
+    fleet = phase_fleet(served)
+    log(f"[fleet] summary {json.dumps(fleet)}")
+    log(f"[slice8] phase 15 {t1 - t0:.1f} s, phase 16 {time.perf_counter() - t1:.1f} s; "
+        f"the whole run {time.perf_counter() - t_start:.1f} s")
 
     log(gpu)
     print(json.dumps({"kernels": [{
@@ -1753,12 +2086,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/delta_snapshot.cu",
         "replaces": "src/repro/kernels/delta_snapshot/kernel.py:26",
         "launches": launches + served["delta_launches"] + rwkv["delta_launches"]
-        + rg["delta_launches"] + sum(r["delta_launches"] for r in suite.values()),
+        + rg["delta_launches"] + sum(r["delta_launches"] for r in suite.values())
+        + trained["delta_launches"],
         "launches_by_path": {"sor_deploy": launches, "serve_stablelm": served["delta_launches"],
                              "serve_rwkv6": rwkv["delta_launches"],
                              "serve_recurrentgemma": rg["delta_launches"],
                              **{f"{name.replace('-', '_')}_deploy": r["delta_launches"]
-                                for name, r in suite.items()}},
+                                for name, r in suite.items()},
+                             "train_stablelm": trained["delta_launches"]},
         "max_abs_err": max_err,
         "exact": max_err == 0,
         "ms": kern["ms"],

@@ -63,3 +63,21 @@ def params_from_jax(tree: Mapping[str, Any], device: str) -> Dict[str, Any]:
         k: params_from_jax(v, device) if isinstance(v, Mapping) else to_tensor(v, device)
         for k, v in tree.items()
     }
+
+
+def train_state_from_jax(state: Mapping[str, Any], device: str) -> Dict[str, Any]:
+    """The JAX package's train state (``init_train_state``'s tree: params,
+    opt.mu, opt.nu, opt.count, step; numpy or jax arrays) as the port's, on
+    ``device``, leaf for leaf and byte for byte."""
+    host = lambda tree: {k: host(v) if isinstance(v, Mapping) else np.asarray(v)
+                         for k, v in tree.items()}
+    opt = state["opt"]
+    return {
+        "params": params_from_jax(host(state["params"]), device),
+        "opt": {
+            "mu": params_from_jax(host(opt["mu"]), device),
+            "nu": params_from_jax(host(opt["nu"]), device),
+            "count": to_tensor(np.asarray(opt["count"]), device),
+        },
+        "step": to_tensor(np.asarray(state["step"]), device),
+    }

@@ -1,5 +1,5 @@
-# Port of repro/core/__init__.py: the same exports, less those of the modules
-# not ported yet: artifacts and fleetsim (ROADMAP, module items 9 and 10).
+# Port of repro/core/__init__.py: the same exports, less those of the module
+# not ported yet: artifacts (ROADMAP, module item 9).
 """EasyCrash core: the paper's contribution as a composable library.
 
 Emulation/characterization layer (paper §3–5):
@@ -61,6 +61,14 @@ from .faults import (
     get_fault_model,
 )
 from .delta_persist import delta_block_mask, persist_mask_for
+from .fleetsim import (
+    ArrivalProcess,
+    FleetConfig,
+    FleetResult,
+    ServiceModel,
+    fleet_frontier,
+    simulate_fleet,
+)
 from .efficiency import (
     SystemConfig,
     efficiency_with,
@@ -114,6 +122,8 @@ __all__ = [
     "POLICIES", "FailureTrace", "PoissonTrace", "RecomputeProfile",
     "SimResult", "WeibullTrace", "efficiency_frontier", "optimize_interval",
     "scaled_trace", "simulate_policy", "trace_from_spec",
+    "ArrivalProcess", "FleetConfig", "FleetResult", "ServiceModel",
+    "fleet_frontier", "simulate_fleet",
     "young_interval", "EasyCrashManager", "FlushPolicy", "flatten_state",
     "unflatten_state", "BatchedKernel", "IterativeApp", "Region", "State",
     "VerifyResult",

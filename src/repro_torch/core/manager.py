@@ -9,7 +9,15 @@
 #   arena write.
 # * restore returns tensors on the device of init_state's tensor leaves and,
 #   in delta mode, seeds the shadows with what it restored.
-# * An async flush of a CUDA leaf runs on the stream that produced its clone.
+# * An async flush of a CUDA leaf runs on a stream of the manager's own (one
+#   per device), which first waits for an event recorded on the caller's
+#   stream after the clones: the mask kernel and the device-to-host copy
+#   then overlap the steps that follow instead of queueing among them.  A
+#   synchronous flush runs on the caller's stream.  A CUDA leaf reaches the
+#   host through a page-locked buffer the manager keeps per leaf.
+# * on_flushed(step, payload, arena), if given, runs after each flush has
+#   landed in the arena (on the writer thread for an async flush), with the
+#   flushed leaves as the flush cloned them.
 # * A bfloat16 tensor leaf goes to the host, and into the arena, as the int16
 #   of the same bits (numpy has no bfloat16 without ml_dtypes); restore views
 #   those bytes back as bfloat16 on the leaf's device.
@@ -156,8 +164,10 @@ class EasyCrashManager:
         t_chk: Optional[float] = None,
         recomputability: float = 0.0,
         step_time: float = 1.0,
+        on_flushed: Optional[Callable[[int, Mapping[str, Any], NVMArena], None]] = None,
     ):
         self.arena = arena
+        self.on_flushed = on_flushed
         self.policy = policy
         self.checkpoint_save = checkpoint_save
         self.checkpoint_restore = checkpoint_restore
@@ -169,6 +179,10 @@ class EasyCrashManager:
             queue.Queue()
         )
         self._worker: Optional[threading.Thread] = None
+        #: per CUDA device, the stream async flushes run on
+        self._streams: Dict[torch.device, Any] = {}
+        #: per CUDA leaf, the page-locked host buffer its flushes copy into
+        self._pinned: Dict[str, torch.Tensor] = {}
         self._last_error: Optional[BaseException] = None
         if policy.async_flush:
             self._worker = threading.Thread(target=self._drain, daemon=True)
@@ -204,32 +218,42 @@ class EasyCrashManager:
         sel = self._selected(flat)
         sel["__step__"] = np.asarray(step, dtype=np.int64)
         payload: Dict[str, Any] = {}
-        #: per CUDA device, the stream the clones were made on: the flush of
-        #: those clones (on the writer thread too) runs on it
-        streams: Dict[torch.device, Any] = {}
         for k, v in sel.items():
             if isinstance(v, torch.Tensor):
                 payload[k] = v.detach().clone(memory_format=torch.contiguous_format)
-                if v.is_cuda:
-                    streams.setdefault(v.device, torch.cuda.current_stream(v.device))
             else:
                 payload[k] = np.array(v, copy=True)
         if self.policy.async_flush:
             if self._q.qsize() >= self.policy.max_pending:
                 self.stats.flushes_skipped += 1   # straggler mitigation: skip
                 return False
-            self._q.put((step, payload, streams))
+            #: per CUDA device, the point on the caller's stream after the
+            #: clones, which the writer's stream waits for
+            ready: Dict[torch.device, Any] = {}
+            for v in payload.values():
+                if isinstance(v, torch.Tensor) and v.is_cuda and v.device not in ready:
+                    ready[v.device] = torch.cuda.Event()
+                    ready[v.device].record(torch.cuda.current_stream(v.device))
+            self._q.put((step, payload, ready))
         else:
-            self._flush_now(step, payload, streams)
+            self._flush_now(step, payload)
         self.stats.flushes_issued += 1
         return True
 
+    def _writer_stream(self, device: torch.device, ready) -> Any:
+        stream = self._streams.get(device)
+        if stream is None:
+            stream = self._streams[device] = torch.cuda.Stream(device=device)
+        stream.wait_event(ready)
+        return stream
+
     def _flush_now(self, step: int, payload: Mapping[str, Any],
-                   streams: Optional[Mapping[torch.device, Any]] = None) -> None:
+                   ready: Optional[Mapping[torch.device, Any]] = None) -> None:
+        streams = {dev: self._writer_stream(dev, ev) for dev, ev in (ready or {}).items()}
         for name, arr in payload.items():
             t0 = time.perf_counter()
             if isinstance(arr, torch.Tensor):
-                on_stream = (torch.cuda.stream(streams[arr.device]) if arr.is_cuda and streams
+                on_stream = (torch.cuda.stream(streams[arr.device]) if arr.device in streams
                              else contextlib.nullcontext())
                 with on_stream:
                     mask, host = self._tensor_mask(name, arr)
@@ -246,6 +270,8 @@ class EasyCrashManager:
             self.stats.blocks_written += written
             self.stats.bytes_written += written * self.arena.block_bytes
         self.arena.save_manifest()
+        if self.on_flushed is not None and payload:
+            self.on_flushed(step, payload, self.arena)
 
     def _tensor_mask(self, name: str, live: torch.Tensor) -> Tuple[Optional[np.ndarray], np.ndarray]:
         """Flush mask and host copy of a tensor leaf.
@@ -261,6 +287,12 @@ class EasyCrashManager:
         cur = self.arena.peek(name)
         shadow = self._shadow.pop(name, None)
         nbytes = live.numel() * live.element_size()
+        if live.is_cuda:  # the caching allocator must not hand these to
+            # the caller's stream while this (writer's) stream reads them
+            stream = torch.cuda.current_stream(live.device)
+            for t in (live, shadow):
+                if t is not None and t.device == live.device:
+                    t.record_stream(stream)
         t0 = time.perf_counter()
         mask = None
         if mode == "delta" and cur is not None and cur.nbytes == nbytes:
@@ -268,7 +300,7 @@ class EasyCrashManager:
                 shadow = _byte_tensor(cur).to(live.device)
             mask = delta_block_mask(shadow, live, self.arena.block_bytes).cpu().numpy()
         t1 = time.perf_counter()
-        host = host_array(live)
+        host = self._host_copy(name, live)
         t2 = time.perf_counter()
         if mask is None:  # auto, full, or a first flush / reallocation: no compare
             mask = persist_mask_for(mode, cur, host, self.arena.block_bytes)
@@ -277,6 +309,22 @@ class EasyCrashManager:
         self.stats.mask_seconds += (t1 - t0) + (time.perf_counter() - t2)
         self.stats.copy_seconds += t2 - t1
         return mask, host
+
+    def _host_copy(self, name: str, live: torch.Tensor) -> np.ndarray:
+        """The leaf's bytes on the host, as :func:`host_array` gives them.
+
+        A CUDA leaf goes through a page-locked buffer this manager keeps per
+        leaf (a DMA on the current stream, waited for), valid until the
+        leaf's next flush: the arena copies what it keeps."""
+        if not live.is_cuda:
+            return host_array(live)
+        src = live.view(torch.int16) if live.dtype == torch.bfloat16 else live
+        buf = self._pinned.get(name)
+        if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
+            buf = self._pinned[name] = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        buf.copy_(src, non_blocking=True)
+        torch.cuda.current_stream(live.device).synchronize()
+        return buf.numpy()
 
     def _drain(self) -> None:
         while True:

@@ -18,8 +18,8 @@
 # * run() times prefill, decode and flushes (synchronizing the device) and
 #   returns the token stream; on_flush lets a caller check each flush.
 # * The default --workdir is build/repro_torch_serve in the repository.
-# * --fleet raises NotImplementedError: fleetsim is not copied yet (ROADMAP,
-#   module item 10 and "Copied, not shared").
+# * main() returns the run's stats, and with --fleet the fleet document
+#   fleet_report gives (the per-policy results) under "fleet".
 """Batched decode server with EasyCrash KV-cache persistence.
 
 Serves a (reduced-by-default) architecture: prefill a batch of prompts,
@@ -173,6 +173,70 @@ def run(args, params: Optional[Dict[str, Any]] = None, prompts: Optional[torch.T
     return stats
 
 
+def fleet_report(stats: Dict[str, float], args) -> Dict[str, dict]:
+    """Project this server's *measured* serving process onto a replica fleet.
+
+    The single-process run measures the two quantities the fleet simulator
+    needs from the real system: the per-step decode time (service rate) and
+    the delta-flush traffic (``bytes_written`` -> ``t_s`` via
+    :func:`~repro.core.efficiency.persist_overhead_fraction`).  Everything
+    else — arrivals, failures, recovery policy — is simulated, so the same
+    binary answers "what would this server's goodput/p99 look like across N
+    replicas under paper-like failure rates?".
+    """
+    from ..core import (
+        POLICIES,
+        ArrivalProcess,
+        FleetConfig,
+        PoissonTrace,
+        RecomputeProfile,
+        ServiceModel,
+        SystemConfig,
+        fleet_frontier,
+        persist_overhead_fraction,
+    )
+
+    steps = max(int(stats["decode_steps"]), 1)
+    step_time = args.prompts / max(stats["tokens_per_s"], 1e-9)
+    t_s = persist_overhead_fraction(stats["bytes_written"] / steps, step_time)
+    # decode sessions are S1-dominant (the KV cache is the session and it is
+    # what we persist); the tail mirrors the decode campaign's shape
+    profile = RecomputeProfile.from_fractions(
+        "serve", {"S1": 0.9, "S2": 0.06, "S3": 0.02, "S4": 0.02},
+        extra_iters_hist=((2, 3), (8, 1)),
+    )
+    service_s = args.decode_steps * step_time
+    rate = args.fleet_rate
+    if rate <= 0:  # auto: offer ~80% of fleet capacity at the measured speed
+        rate = 0.8 * args.fleet_replicas / max(service_s, 1e-3)
+    cfg = FleetConfig(
+        n_replicas=args.fleet_replicas,
+        arrival=ArrivalProcess(rate=rate, amplitude=0.3),
+        service=ServiceModel(mean_s=max(service_s, 1e-3), sigma=0.6,
+                             prefill_s=max(args.prompt_len * step_time, 1e-3)),
+        trace=PoissonTrace(mtbf=args.fleet_mtbf),
+        system=SystemConfig(mtbf=args.fleet_mtbf, t_chk=30.0,
+                            nvm_restore_time=2.0),
+        slo_latency=4.0 * max(service_s, 1e-3),
+        queue_cap=48,
+        horizon=args.fleet_horizon,
+        t_s=t_s,
+        t_iter=step_time,
+        seed=args.seed,
+    )
+    print(f"[fleet] measured t_s={t_s:.4f} step={step_time*1e3:.2f}ms "
+          f"service={service_s:.2f}s; {cfg.n_replicas} replicas, "
+          f"mtbf={cfg.trace.mtbf:.0f}s, horizon={cfg.horizon:.0f}s")
+    doc = fleet_frontier(cfg, profile)
+    for policy in POLICIES:
+        p = doc["policies"][policy]
+        print(f"[fleet] {policy:10s} goodput={p['goodput']:.3f}rps "
+              f"loss={p['dropped']/max(p['arrived'],1):.3f} "
+              f"slo={p['slo_violation_frac']:.3f} "
+              f"p99={p['latency_p99']:.2f}s fails={p['n_failures']}")
+    return doc["policies"]
+
+
 def _splice_cache(cfg, full_cache: Dict[str, Any], prefill_cache: Dict[str, Any],
                   prompt_len: int) -> Dict[str, Any]:
     """Install the prefill's cache into the right-sized decode cache, in
@@ -215,27 +279,29 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a CUDA device) or cpu")
     ap.add_argument("--fleet", action="store_true",
-                    help="not ported yet: the fleet projection needs fleetsim")
+                    help="after serving, project the measured step time and "
+                         "persist traffic onto a replica fleet under "
+                         "failures (repro_torch.core.fleetsim policy comparison)")
     ap.add_argument("--fleet-replicas", type=int, default=4)
-    ap.add_argument("--fleet-rate", type=float, default=0.0)
-    ap.add_argument("--fleet-mtbf", type=float, default=900.0)
+    ap.add_argument("--fleet-rate", type=float, default=0.0,
+                    help="fleet offered load, requests/s "
+                         "(<= 0: auto, ~80%% of measured fleet capacity)")
+    ap.add_argument("--fleet-mtbf", type=float, default=900.0,
+                    help="per-replica MTBF, seconds")
     ap.add_argument("--fleet-horizon", type=float, default=1800.0)
     return ap
 
 
 def main(argv=None) -> Dict[str, Any]:
     args = parser().parse_args(argv)
-    if args.fleet:
-        raise NotImplementedError(
-            "--fleet is not ported to torch yet: fleetsim is not copied "
-            "(ROADMAP, module item 10)"
-        )
     try:
         stats = run(args)
     except SimulatedFailure as e:
         print(f"[failure] {e}; restarting...")
         args.inject_failure_at = 0
         stats = run(args)
+    if args.fleet:
+        stats["fleet"] = fleet_report(stats, args)
     return stats
 
 

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.convert import state_to_torch
 from repro_torch.core.arena import NVMArena
-from repro_torch.core.manager import EasyCrashManager, FlushPolicy
+from repro_torch.core.manager import EasyCrashManager, FlushPolicy, flatten_state
 from repro_torch.hpc.sor import SORApp
 from repro_torch.kernels.delta_snapshot import dirty_block_mask
 from repro_torch.kernels.delta_snapshot.ref import dirty_block_mask_reference
@@ -472,3 +472,48 @@ def test_lane_driver_graph_equals_eager_chunk_and_serial(name, field, monkeypatc
             assert out_its[i] == wit
             for k in want:
                 assert np.asarray(states[i][k]).tobytes() == np.asarray(want[k]).tobytes(), (i, k)
+
+
+# ---------------------------------------------------- the trainer (slice 8)
+def test_trainer_on_device_async_delta_flushes_and_restores_the_image(tmp_path):
+    """A few trainer steps on the card with asynchronous delta flushes: each
+    flush's mask comes from delta_snapshot (one launch per tensor leaf once
+    the arena holds the leaf), every arena image equals the bytes its flush
+    cloned, and the restart after a crash restores that image exactly."""
+    from repro_torch.convert import host_array
+    from repro_torch.launch import train
+
+    args = train.parser().parse_args([
+        "--width", "256", "--seq", "32", "--batch", "4", "--steps", "9", "--flush-every", "3",
+        "--persist-mode", "delta", "--inject-failure-every", "6", "--workdir", str(tmp_path)])
+    landed = {}
+
+    def on_flushed(step, payload, arena):
+        for name, leaf in payload.items():
+            if isinstance(leaf, torch.Tensor):
+                assert leaf.is_cuda
+                assert arena.peek(name).tobytes() == host_array(leaf).tobytes(), name
+        landed[step] = {k: host_array(v) for k, v in payload.items()
+                        if isinstance(v, torch.Tensor)}
+
+    before = dirty_block_mask.launches
+    with pytest.raises(train.SimulatedFailure):
+        train.run(args, on_flushed=on_flushed)
+    leaves = len(landed[3])  # the parameter leaves and step
+    assert sorted(landed) == [3, 6]
+    assert dirty_block_mask.launches - before == leaves  # at 6: the arena held them
+    restored = {}
+
+    def on_restore(state, step, source):
+        restored.update(step=step, source=source,
+                        params={k: host_array(v) for k, v in
+                                flatten_state(state["params"]).items()})
+
+    args.inject_failure_every = 0
+    before = dirty_block_mask.launches
+    stats = train.run(args, on_flushed=on_flushed, on_restore=on_restore)
+    assert (restored["source"], restored["step"]) == ("easycrash", 6)
+    for k, v in restored["params"].items():
+        assert v.tobytes() == landed[6]["params/" + k].tobytes(), k
+    assert stats["final_step"] == 9 and sorted(landed) == [3, 6, 9]
+    assert dirty_block_mask.launches - before == leaves  # the flush at 9

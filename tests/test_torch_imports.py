@@ -36,7 +36,10 @@ def test_no_jax_or_reference_imports_in_port_sources():
     names = {os.path.relpath(f, SRC) for f in files}
     for mod in ("hpc/heat.py", "hpc/cg.py", "hpc/pagerank.py", "hpc/kmeans.py",
                 "models/train_app.py", "hpc/mg.py", "hpc/montecarlo.py", "hpc/threefry.py",
-                "core/lane_driver.py"):
+                "core/lane_driver.py", "optim/adamw.py", "optim/schedule.py",
+                "optim/compression.py", "data/pipeline.py", "checkpoint/serialization.py",
+                "checkpoint/manager.py", "launch/train.py", "launch/steps.py",
+                "core/fleetsim.py"):
         assert os.path.join("repro_torch", mod) in names, mod
     for path in files:
         with open(path) as f:
@@ -113,6 +116,31 @@ def test_port_serving_leaves_jax_unloaded(tmp_path):
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_port_training_and_fleet_leave_jax_unloaded(tmp_path):
+    """The trainer (a crash and an EasyCrash restore, a checkpoint) and a
+    --fleet server run, in a fresh interpreter, load neither jax, ml_dtypes
+    nor anything of the JAX package."""
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from repro_torch.launch import serve, train\n"
+        "st = train.main(['--device', 'cpu', '--steps', '10', '--inject-failure-every', '6',\n"
+        "                 '--width', '64', '--seq', '16', '--batch', '2', '--mtbf', '6',\n"
+        f"                 '--t-chk', '1', '--workdir', {str(tmp_path / 't')!r}])\n"
+        "assert st['final_step'] == 10 and st['restore_source'] == 'easycrash', st\n"
+        "serve.main(['--device', 'cpu', '--decode-steps', '4', '--fleet',\n"
+        f"            '--fleet-horizon', '300', '--workdir', {str(tmp_path / 's')!r}])\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes', 'repro')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'ml_dtypes.', 'repro.')))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     """Without a CUDA device, an entry point not told device='cpu' raises."""
     from repro_torch.hpc.sor import SORApp
@@ -133,6 +161,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--decode-steps", "1"])
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1"])
     from repro_torch.configs import get_arch
     from repro_torch.models import init_cache, scaled_down
     from repro_torch.models.attention import init_kv_cache

@@ -172,9 +172,22 @@ def test_serve_cli_resume_equals_uninterrupted(tmp_path):
     assert clean["flush_bytes"][0] > 5 * kv  # the first flush writes everything
 
 
-def test_serve_fleet_names_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--device", "cpu", "--fleet"])
+def test_serve_fleet_projects_the_measured_run(tmp_path, capsys):
+    """--fleet after the run: one line per policy, and main() returns the
+    document fleet_report gives for the run's stats (and JAX's gives)."""
+    argv = ["--device", "cpu", "--decode-steps", "8", "--fleet", "--fleet-horizon", "600",
+            "--workdir", str(tmp_path)]
+    stats = serve.main(argv)
+    out = capsys.readouterr().out
+    from repro_torch.core import POLICIES
+
+    for policy in POLICIES:
+        assert f"[fleet] {policy:10s} goodput=" in out
+    args = serve.parser().parse_args(argv)
+    assert stats["fleet"] == serve.fleet_report(stats, args)
+    assert stats["fleet"] == jax_serve.fleet_report(stats, args)
+    for p in stats["fleet"].values():
+        assert p["arrived"] == p["served"] + p["dropped"] + p["in_flight"]
 
 
 # -------------------------------------------------- bfloat16 leaves (repair)
