@@ -21,13 +21,15 @@ Phases, in order; any failure ends the run with a nonzero exit:
 5. flash attention: the ``flash_attention`` kernels (the bf16 ``wgmma``
    route, the f32 SIMT route) against their plain version on the card over
    a grid of dtypes, head dims, masks, lengths and tiles, the bf16 route's
-   edges (windows under its kv tile, non-causal windows, ragged S) and both
-   serving paths' prefill shapes (StableLM-2-1.6B's, and RecurrentGemma-9B's
-   D 256 with k and v repeated from one kv head, window 2048); rows wholly
-   masked inside live tiles against a float64 softmax over their keys; two
-   bf16 launches bit for bit; then kernel, plain version and
-   ``F.scaled_dot_product_attention`` (the library yardstick, never on the
-   path) timed at both shapes beside their bounds;
+   edges (windows under its kv tile, non-causal windows, ragged S) and the
+   serving paths' prefill shapes (StableLM-2-1.6B's; RecurrentGemma-9B's
+   D 256 with k and v repeated from one kv head, window 2048;
+   Qwen1.5-MoE-A2.7B's 16 heads of D 128; Llama-4-Scout's 40 q heads over 8
+   kv heads of D 128); rows wholly masked inside live tiles against a
+   float64 softmax over their keys; two bf16 launches bit for bit; then
+   kernel, plain version and ``F.scaled_dot_product_attention`` (the
+   library yardstick, never on the path) timed at each shape beside its
+   bound, and the op as the path calls it (with ``_repeat_kv``);
 6. decode characterization: the decode crash campaign reproduces its pinned
    golden on the card, and ``run_workflow`` gives the JAX package's plan;
 7. serving at full width: StableLM-2-1.6B (24 layers, 1.64 B parameters,
@@ -101,7 +103,24 @@ Phases, in order; any failure ends the run with a nonzero exit:
    writes and the measured T_chk with efficiency_with/without;
 16. ``serve.fleet_report`` on phase 7's uninterrupted run at the
    launcher's fleet defaults (4 replicas, MTBF 900 s, horizon 1800 s):
-   every policy's line, and request conservation for each.
+   every policy's line, and request conservation for each;
+17. the MoE archs: (a) Qwen1.5-MoE-A2.7B at full width and depth (24
+   layers, 60 routed experts top-4, a shared MLP; 14,315,587,584 parameters
+   asserted, bf16 with an f32 router) served as phase 7 serves StableLM
+   (4 prompts of 1024 tokens, 64 steps, a delta flush every 16, a crash at
+   32, a resume equal to the uninterrupted stream, every flushed image equal
+   to the live bytes); its kernel prefill against the reference prefill at
+   2 layers in float32 weights, with the routers' top-k sets that differ
+   counted; ``flash_attention`` once per layer and prefill at D 128; the
+   slots dropped at capacity counted per prefill; one warm prefill profiled
+   into attention, router, dispatch, expert products, combine and shared
+   MLP, and 8 decode steps with the device's idle share; (b)
+   Llama-4-Scout-17B-16E at full width with its depth cut to 2 of 48 layers
+   (top-1 of 16 experts, a shared expert; 40 q heads over 8 kv heads): its
+   kernel prefill against the reference prefill in float32 weights, 8
+   greedy steps from each prefill's cache giving the same tokens, and its
+   bf16 kernel prefill timed; (c) ``flash_attention`` at Qwen's shape,
+   timed in phase 5.
 
 Every campaign's phase A goes through the apps' lane drivers; a driver that
 raises and falls back to the host loop fails the run.
@@ -166,7 +185,7 @@ from repro_torch.core.efficiency import efficiency_with, efficiency_without  # n
 from repro_torch.data import SyntheticLMStream  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.steps import make_decode_fn  # noqa: E402
-from repro_torch.models import init_cache, init_params, prefill  # noqa: E402
+from repro_torch.models import init_cache, init_params, moe, prefill  # noqa: E402
 from repro_torch.models.attention import _repeat_kv  # noqa: E402
 
 #: H100 SXM device-memory rate, bytes/s, and dense bf16 tensor-core rate,
@@ -233,8 +252,14 @@ SERVE_WORKDIR = os.path.join(ROOT, "build", "chip_smoke_serve")
 #: and RecurrentGemma-9B's local attention (16 q heads over 1 kv head)
 ATTN_SHAPE = (SERVE_PROMPTS, SERVE_PROMPT_LEN, 32, 64)
 RG_ATTN_SHAPE = (SERVE_PROMPTS, SERVE_PROMPT_LEN, 16, 256)
+#: Qwen1.5-MoE-A2.7B's (16 heads of D 128), and Llama-4-Scout's (40 q heads
+#: over 8 kv heads of D 128)
+QWEN_ATTN_SHAPE = (SERVE_PROMPTS, SERVE_PROMPT_LEN, 16, 128)
+SCOUT_ATTN_SHAPE = (SERVE_PROMPTS, SERVE_PROMPT_LEN, 40, 128)
 ATTN_PATHS = {"serve_stablelm": (ATTN_SHAPE, 32, None),
-              "serve_recurrentgemma": (RG_ATTN_SHAPE, 1, 2048)}
+              "serve_recurrentgemma": (RG_ATTN_SHAPE, 1, 2048),
+              "serve_qwen2_moe": (QWEN_ATTN_SHAPE, 16, None),
+              "llama4_scout_prefill": (SCOUT_ATTN_SHAPE, 8, None)}
 #: the recurrent serving paths, same prompts, steps and flushes
 RWKV_ARCH, RG_ARCH = "rwkv6-3b", "recurrentgemma-9b"
 #: rwkv6_scan's shape on RWKV6-3B's prefill (B, S, H, D); rglru_scan's on
@@ -254,6 +279,15 @@ TRAIN_CKPT_EVERY = 8
 #: the launcher's defaults, at which efficiency_with/without are evaluated
 TRAIN_EFF_MTBF, TRAIN_EFF_R = 300.0, 0.82
 TRAIN_WORKDIR = os.path.join(ROOT, "build", "chip_smoke_train")
+#: the MoE serving path (slice 9): Qwen1.5-MoE-A2.7B unscaled (24 layers,
+#: 60 routed experts top-4 of width 1408, a shared MLP of 5632; bf16
+#: weights, f32 router), its prefills compared at a depth cut of 2 layers;
+#: Llama-4-Scout-17B-16E at full width (16 experts top-1 of 8192, a shared
+#: expert of 8192, 40 q heads over 8 kv heads), its depth cut from 48
+#: layers to 2 (about 6.5 B parameters): the whole model is about 108 B
+#: parameters, 216 GB in bf16, over one card's 80 GB
+MOE_ARCH, MOE_PARAMS, MOE_COMPARE_LAYERS = "qwen2-moe-a2.7b", 14_315_587_584, 2
+SCOUT_ARCH, SCOUT_LAYERS, SCOUT_DECODE_STEPS = "llama4-scout-17b-a16e", 2, 8
 
 
 def log(msg: str) -> None:
@@ -707,13 +741,15 @@ def _flash_cases():
         yield f"{path} shape", shape, torch.bfloat16, True, window, 128, hkv
 
 
-def _attn_inputs(gen, shape, hkv: int, dtype):
-    """q (B,S,H,D); k and v drawn with ``hkv`` heads and repeated to H as
-    attention_full repeats them before the kernel."""
+def _attn_inputs(gen, shape, hkv: int, dtype, repeat: bool = True):
+    """q (B,S,H,D); k and v drawn with ``hkv`` heads and (``repeat``)
+    repeated to H as attention_full repeats them before the kernel."""
     b, s, h, d = shape
     q = torch.randn(shape, generator=gen, device=gen.device).to(dtype)
-    k, v = (_repeat_kv(torch.randn((b, s, hkv, d), generator=gen, device=gen.device).to(dtype),
-                       h // hkv) for _ in range(2))
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=gen.device).to(dtype)
+            for _ in range(2))
+    if repeat:
+        k, v = _repeat_kv(k, h // hkv), _repeat_kv(v, h // hkv)
     return q, k, v
 
 
@@ -756,13 +792,17 @@ def attn_bound_ms(b: int, s: int, h: int, d: int, window=None) -> tuple:
 def _time_flash(gen, path: str) -> dict:
     """Kernel, plain version and SDPA at one path's prefill shape, on k and v
     as the kernel reads them (contiguous, repeated to H heads); and the op as
-    the path calls it (``path_ms``), whose k and v from ``_repeat_kv`` are a
-    stride-0 view when there is one kv head, so the wrapper copies them."""
+    the path calls it (``path_ms``): ``_repeat_kv`` of the kv heads, which
+    copies them to H heads (GQA), or gives a stride-0 view for one kv head
+    that the wrapper copies, then the kernel."""
     shape, hkv, window = ATTN_PATHS[path]
     bsz, s, h, d = shape
-    q, k, v = _attn_inputs(gen, shape, hkv, torch.bfloat16)
-    path_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
-    k, v = k.contiguous(), v.contiguous()
+    q, k1, v1 = _attn_inputs(gen, shape, hkv, torch.bfloat16, repeat=False)
+    path_ms = cuda_ms(lambda: flash_attention(q, _repeat_kv(k1, h // hkv),
+                                              _repeat_kv(v1, h // hkv), causal=True,
+                                              window=window))
+    k, v = (_repeat_kv(x, h // hkv).contiguous() for x in (k1, v1))
+    del k1, v1
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
     plain_ms = cuda_ms(lambda: attention_reference(q.transpose(1, 2), k.transpose(1, 2),
                                                    v.transpose(1, 2), causal=True,
@@ -941,12 +981,8 @@ def phase_serve(dev: str) -> dict:
         raise AssertionError(f"flash_attention launched {flash_launches} times, "
                              f"expected {2 * cfg.n_layers}")
     _check_delta_launches("serve", cfg, delta_launches)
+    _check_kv_flush_bytes("serve", cfg, clean["flush_bytes"][1:] + resumed["flush_bytes"])
     row = cfg.n_kv_heads * cfg.head_dim * 2  # one token's K (or V) in one layer, bf16
-    kv_bytes = 2 * SERVE_FLUSH_EVERY * cfg.n_layers * SERVE_PROMPTS * row
-    later = clean["flush_bytes"][1:] + resumed["flush_bytes"]
-    if not all(kv_bytes < b <= kv_bytes + 64 * 16 for b in later):
-        raise AssertionError(f"delta flushes wrote {later} bytes, expected {kv_bytes} "
-                             f"of KV rows plus a few token blocks")
     n_flush = len(clean["flush_bytes"])
     split = clean["flush_split_ms"]
     out = {
@@ -977,6 +1013,17 @@ def phase_serve(dev: str) -> dict:
         f"launches: flash_attention {flash_launches}, delta_snapshot {delta_launches}; "
         f"peak device memory {peak} bytes")
     return out
+
+
+def _check_kv_flush_bytes(name: str, cfg, later: list) -> None:
+    """Each delta flush after the first writes the KV rows of the steps since
+    the last one, in k and in v of every layer and session (bf16), plus a
+    few blocks of tokens, t and the step."""
+    row = cfg.n_kv_heads * cfg.head_dim * 2  # one token's K (or V) in one layer
+    kv_bytes = 2 * SERVE_FLUSH_EVERY * cfg.n_layers * SERVE_PROMPTS * row
+    if not all(kv_bytes < b <= kv_bytes + 64 * 16 for b in later):
+        raise AssertionError(f"{name}: delta flushes wrote {later} bytes, expected {kv_bytes} "
+                             f"of KV rows plus a few token blocks")
 
 
 def _kernel_profile(fn, steps: int) -> dict:
@@ -1215,25 +1262,87 @@ def phase_rglru_kernel(dev: str) -> dict:
 
 
 # --------------------------------------------- 9, 10. serving recurrent models
-def _compare_prefills(name: str, cfg, params, prompts) -> None:
+@contextlib.contextmanager
+def _patched(module, name: str, wrap):
+    """``module.name`` replaced by ``wrap(module.name)`` inside the block."""
+    fn = getattr(module, name)
+    setattr(module, name, wrap(fn))
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _recording(into: list, pick):
+    """A wrapper for ``_patched`` that appends ``pick(result)`` of each call
+    to ``into`` (device tensors: nothing waits on the host)."""
+    def wrap(fn):
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            into.append(pick(out))
+            return out
+        return recorded
+    return wrap
+
+
+def _greedy(cfg, params, logits, pcache, steps: int):
+    """``steps`` greedy decode steps from a prefill's logits and cache: the
+    tokens (B, steps + 1), the prefill's own first."""
+    cache = serve._splice_cache(cfg, init_cache(cfg, SERVE_PROMPTS, SERVE_PROMPT_LEN + steps + 1,
+                                                logits.device.type), pcache, SERVE_PROMPT_LEN)
+    step_fn = make_decode_fn(cfg)
+    tokens = [logits.argmax(dim=-1).to(torch.int32)[:, None]]
+    for _ in range(steps):
+        token, cache = step_fn(params, cache, tokens[-1])
+        tokens.append(token)
+    return torch.cat(tokens, dim=1)
+
+
+def _compare_prefills(name: str, cfg, params, prompts, decode_steps: int = 0) -> dict:
     """The kernel prefill against the reference prefill in float32 weights:
     the two differ in the order of f32 sums only; held to 2e-2 (abs and
-    rel), as the StableLM comparison."""
+    rel), as the StableLM comparison.  On an MoE config the routers' top-k
+    sets of the two are compared per (token, layer) and the ones that differ
+    counted: a near tie that the order of sums flips.  With
+    ``decode_steps``, each prefill's cache then decodes that many greedy
+    steps, and the two streams must be equal."""
     c = dataclasses.replace(cfg, dtype="float32")
     p = _tree_map(params, lambda x: x.float())
-    lk, _ = prefill(c, p, prompts, impl="kernel")
-    lr, _ = prefill(c, p, prompts, impl="reference")
+    logits, routes, streams = {}, {}, {}
+    for impl in ("kernel", "reference"):
+        routes[impl] = []
+        with _patched(moe, "_route", _recording(routes[impl], lambda out: out[1].sort(-1)[0])):
+            logits[impl], pcache = prefill(c, p, prompts, impl=impl)
+        if decode_steps:
+            streams[impl] = _greedy(c, p, logits[impl], pcache, decode_steps)
+        del pcache
+    lk, lr = logits["kernel"], logits["reference"]
     torch.cuda.synchronize()
     err = float((lk - lr).abs().max())
     same = torch.equal(lk.argmax(-1), lr.argmax(-1))
+    flips = sum(int((a != b).any(-1).sum()) for a, b in zip(routes["kernel"],
+                                                             routes["reference"]))
+    routed = sum(a.shape[0] for a in routes["kernel"])
     log(f"[{name}] float32 weights, {c.n_layers} layers: kernel vs reference prefill logits "
         f"{tuple(lk.shape)}: max |diff| {err:.3e} (|logit| up to {float(lr.abs().max()):.2f}); "
-        f"greedy tokens equal: {same}")
+        f"greedy tokens equal: {same}"
+        + (f"; routing: {flips} of {routed} (token, layer) top-{cfg.moe.top_k} sets differ"
+           if cfg.moe else ""))
     if not torch.allclose(lk, lr, atol=2e-2, rtol=2e-2):
         raise AssertionError(f"{name}: float32 kernel prefill logits differ from the "
                              f"reference's beyond 2e-2")
-    del p, lk, lr
+    out = {"max_abs_diff": err, "route_flips": flips, "routed": routed}
+    if decode_steps:
+        if not torch.equal(streams["kernel"], streams["reference"]):
+            diff = (streams["kernel"] != streams["reference"]).nonzero()
+            raise AssertionError(f"{name}: {decode_steps} greedy steps from the kernel prefill "
+                                 f"leave the reference's stream at {diff[:4].tolist()}")
+        log(f"[{name}] {decode_steps} greedy decode steps from each prefill's cache: the same "
+            f"{tuple(streams['kernel'].shape)} tokens")
+        out["decode_steps"] = decode_steps
+    del p, logits
     torch.cuda.empty_cache()
+    return out
 
 
 def _prefill_profile(name: str, cfg, params, prompts, kernels: tuple) -> dict:
@@ -2006,6 +2115,173 @@ def phase_fleet(served: dict) -> dict:
     return out
 
 
+# ---------------------------------------------- 17. serving the MoE archs
+#: the MoE layer's functions whose device time the prefill profile reads,
+#: each inside a record_function range: the router, the dispatch into the
+#: capacity buffers, the expert products, the combine, the shared MLP
+MOE_PARTS = ("_route", "_dispatch", "_expert_mlp", "_combine", "mlp_apply")
+
+
+def _annotated(label: str):
+    def wrap(fn):
+        def ranged(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return ranged
+    return wrap
+
+
+def _moe_prefill_profile(name: str, cfg, params, prompts) -> dict:
+    """One bf16 kernel prefill timed warm on the host clock, then one under
+    torch.profiler: the device time of all its kernels, of flash_attention's,
+    and of the kernels each MoE function launches (the device time of its
+    record_function range)."""
+    prefill(cfg, params, prompts, impl="kernel")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(cfg, params, prompts, impl="kernel")
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with contextlib.ExitStack() as stack:
+        for part in MOE_PARTS:
+            stack.enter_context(_patched(moe, part, _annotated(f"moe.{part}")))
+        with torch.profiler.profile(activities=acts) as prof:
+            prefill(cfg, params, prompts, impl="kernel")
+            torch.cuda.synchronize()
+    device_ms = flash_ms = 0.0
+    parts = {}
+    for e in prof.key_averages():
+        if e.key.startswith("moe."):
+            # the range on the host sums the kernels its ops launched; its
+            # twin on the device (a user annotation) spans first kernel to
+            # last, gaps included, and is not read
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                total = getattr(e, "device_time_total", None)
+                if total is None:
+                    total = getattr(e, "cuda_time_total", 0)
+                parts[e.key[4:]] = total / 1e3
+            continue
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        device_ms += dev_us / 1e3
+        if "flash_" in e.key:
+            flash_ms += dev_us / 1e3
+    if not device_ms:
+        log(f"[{name}] prefill {wall_ms:.1f} ms (warm, host clock); the profiler reported no "
+            "device time (the breakdown not measured)")
+        return {"prefill_ms": wall_ms, "device_ms": None, "parts_ms": None}
+    parts = {"flash_attention": flash_ms, **{k: parts.get(k, 0.0) for k in MOE_PARTS}}
+    parts["other"] = device_ms - sum(parts.values())
+    log(f"[{name}] prefill {wall_ms:.1f} ms (warm, host clock); under the profiler its kernels "
+        f"take {device_ms:.1f} ms of device time: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + " ms (mlp_apply: the shared "
+        "MLP; other: projections, norms, embedding, logits)")
+    torch.cuda.empty_cache()
+    return {"prefill_ms": wall_ms, "device_ms": device_ms, "parts_ms": parts}
+
+
+def _depth_cut(cfg, params, n: int):
+    """An all-attention config cut to its first ``n`` layers, with those
+    layers' own weights (views)."""
+    c = dataclasses.replace(cfg, n_layers=n)
+    p = dict(params)
+    p["group0"] = _tree_map(params["group0"], lambda x: x[:n])
+    return c, p
+
+
+def phase_serve_moe(dev: str) -> dict:
+    """(a) Qwen1.5-MoE-A2.7B at full width and depth, served as phase 7
+    serves StableLM-2-1.6B, its prefills compared at 2 layers."""
+    cfg = get_arch(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(int(x.numel()) for x in _leaves(params))
+    if n_params != MOE_PARAMS:
+        raise AssertionError(f"{MOE_ARCH} has {n_params} parameters, not {MOE_PARAMS}")
+    log(f"[qwen] {MOE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, {n_params} parameters in "
+        f"{cfg.dtype} (router f32), init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated()} bytes on the card")
+    prompts = serve.make_prompts(cfg, SERVE_PROMPTS, SERVE_PROMPT_LEN, dev)
+    compare = _compare_prefills("qwen", *_depth_cut(cfg, params, MOE_COMPARE_LAYERS), prompts)
+    breakdown = _moe_prefill_profile("qwen", cfg, params, prompts)
+    profile = _profile_decode(cfg, params, prompts, dev, name="qwen")
+    torch.cuda.empty_cache()
+
+    flash_attention.launches = 0
+    dirty_block_mask.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    dropped = []
+    with _patched(moe, "_dispatch", _recording(dropped, lambda out: (~out[2]).sum())):
+        runs = _serve_and_resume("qwen", MOE_ARCH, params, prompts)
+    flash_launches, delta_launches = flash_attention.launches, dirty_block_mask.launches
+    peak = torch.cuda.max_memory_allocated()
+    # 2 prefills (the uninterrupted run, the crashed run); the resume has none
+    if flash_launches != 2 * cfg.n_layers:
+        raise AssertionError(f"qwen: flash_attention launched {flash_launches} times, "
+                             f"expected {2 * cfg.n_layers} (once per layer and prefill)")
+    _check_delta_launches("qwen", cfg, delta_launches)
+    _check_kv_flush_bytes("qwen", cfg, runs["clean"]["flush_bytes"][1:]
+                          + runs["resumed"]["flush_bytes"])
+    if len(dropped) != 2 * cfg.n_layers:
+        raise AssertionError(f"qwen: {len(dropped)} sort dispatches, expected "
+                             f"{2 * cfg.n_layers} (the prefills' layers)")
+    slots = SERVE_PROMPTS * SERVE_PROMPT_LEN * cfg.moe.top_k * cfg.n_layers
+    per_prefill = [int(sum(int(x) for x in dropped[i * cfg.n_layers:(i + 1) * cfg.n_layers]))
+                   for i in range(2)]
+    log(f"[qwen] slots dropped at capacity per prefill: {per_prefill} of {slots} "
+        f"({per_prefill[0] / slots:.2%})")
+    del params
+    torch.cuda.empty_cache()
+    row = cfg.n_kv_heads * cfg.head_dim * 2
+    return _serve_summary("qwen", runs, {
+        "n_params": n_params, "prefill_compare": compare, "prefill_breakdown": breakdown,
+        "decode_profile": profile, "dropped_slots": per_prefill, "slots": slots,
+        "kv_cache_bytes_per_leaf": cfg.n_layers * SERVE_PROMPTS
+        * (SERVE_PROMPT_LEN + SERVE_STEPS + 1) * row,
+        "peak_device_bytes": peak, "flash_launches": flash_launches,
+        "delta_launches": delta_launches})
+
+
+def phase_scout(dev: str) -> dict:
+    """(b) Llama-4-Scout-17B-16E at full width, its depth cut to 2 layers:
+    the kernel prefill against the reference prefill in float32 weights,
+    then 8 greedy steps from each; the model's own bf16 kernel prefill
+    timed."""
+    cfg = dataclasses.replace(get_arch(SCOUT_ARCH), n_layers=SCOUT_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(int(x.numel()) for x in _leaves(params))
+    log(f"[scout] {SCOUT_ARCH} cut to {cfg.n_layers} of 48 layers: d_model {cfg.d_model}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, {n_params} parameters in "
+        f"{cfg.dtype}, init {time.perf_counter() - t0:.1f} s")
+    prompts = serve.make_prompts(cfg, SERVE_PROMPTS, SERVE_PROMPT_LEN, dev)
+    compare = _compare_prefills("scout", cfg, params, prompts, decode_steps=SCOUT_DECODE_STEPS)
+    prefill(cfg, params, prompts, impl="kernel")  # warm-up
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(cfg, params, prompts, impl="kernel")
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = flash_attention.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"scout: flash_attention launched {launches} times in a prefill, "
+                             f"expected {cfg.n_layers}")
+    log(f"[scout] bf16 kernel prefill {prefill_ms:.1f} ms (warm, host clock), "
+        f"flash_attention {launches} launches")
+    del params
+    torch.cuda.empty_cache()
+    return {"n_params": n_params, "prefill_compare": compare, "prefill_ms": prefill_ms,
+            "flash_launches": launches}
+
+
 def _tree_map(tree, fn):
     return {k: _tree_map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
@@ -2076,7 +2352,20 @@ def main() -> int:
     t1 = time.perf_counter()
     fleet = phase_fleet(served)
     log(f"[fleet] summary {json.dumps(fleet)}")
-    log(f"[slice8] phase 15 {t1 - t0:.1f} s, phase 16 {time.perf_counter() - t1:.1f} s; "
+    log(f"[slice8] phase 15 {t1 - t0:.1f} s, phase 16 {time.perf_counter() - t1:.1f} s")
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    qwen = phase_serve_moe(dev)
+    log(f"[qwen] summary {json.dumps(qwen)}")
+    scout = phase_scout(dev)
+    log(f"[scout] summary {json.dumps(scout)}")
+    qwen_attn = flash["by_path"]["serve_qwen2_moe"]
+    log(f"[slice9] flash_attention at Qwen's shape {qwen_attn['shape']}: kernel "
+        f"{qwen_attn['ms']:.4f} ms, SDPA {qwen_attn['library_ms']:.4f} ms, plain "
+        f"{qwen_attn['plain_ms']:.4f} ms, bound {qwen_attn['bound_ms']:.4f} ms "
+        f"({qwen_attn['bound_by']}; phase 5)")
+    log(f"[slice9] phase 17 {time.perf_counter() - t0:.1f} s; "
         f"the whole run {time.perf_counter() - t_start:.1f} s")
 
     log(gpu)
@@ -2087,13 +2376,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/delta_snapshot/kernel.py:26",
         "launches": launches + served["delta_launches"] + rwkv["delta_launches"]
         + rg["delta_launches"] + sum(r["delta_launches"] for r in suite.values())
-        + trained["delta_launches"],
+        + trained["delta_launches"] + qwen["delta_launches"],
         "launches_by_path": {"sor_deploy": launches, "serve_stablelm": served["delta_launches"],
                              "serve_rwkv6": rwkv["delta_launches"],
                              "serve_recurrentgemma": rg["delta_launches"],
                              **{f"{name.replace('-', '_')}_deploy": r["delta_launches"]
                                 for name, r in suite.items()},
-                             "train_stablelm": trained["delta_launches"]},
+                             "train_stablelm": trained["delta_launches"],
+                             "serve_qwen2_moe": qwen["delta_launches"]},
         "max_abs_err": max_err,
         "exact": max_err == 0,
         "ms": kern["ms"],
@@ -2106,9 +2396,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
-        "launches": served["flash_launches"] + rg["flash_launches"],
+        "launches": served["flash_launches"] + rg["flash_launches"] + qwen["flash_launches"]
+        + scout["flash_launches"],
         "launches_by_path": {"serve_stablelm": served["flash_launches"],
-                             "serve_recurrentgemma": rg["flash_launches"]},
+                             "serve_recurrentgemma": rg["flash_launches"],
+                             "serve_qwen2_moe": qwen["flash_launches"],
+                             "llama4_scout_prefill": scout["flash_launches"]},
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],

@@ -33,6 +33,12 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --prompts 4 --decode-steps 64 --inject-failure-at 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --device cpu
+
+An MoE arch's prefill dispatches its tokens in ``dispatch_groups`` groups
+(32 for both MoE archs), so --prompts x --prompt-len must be a multiple of
+it.  On the card, ``--arch qwen2-moe-a2.7b --full-size`` serves
+Qwen1.5-MoE-A2.7B whole (28.6 GB of bf16 weights).
 """
 from __future__ import annotations
 

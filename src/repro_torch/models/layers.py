@@ -37,9 +37,10 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 def normal_init(gen: torch.Generator, shape: Sequence[int], scale: float,
                 dtype: torch.dtype) -> torch.Tensor:
-    """Standard normal in f32 on ``gen``'s device, times ``scale``, cast."""
+    """Standard normal in f32 on ``gen``'s device, times ``scale``, cast.
+    The scaling is in place, so a leaf's f32 draw is its only temporary."""
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32, device=gen.device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def _upcast(x: torch.Tensor) -> bool:

@@ -1,10 +1,11 @@
 # Port of repro/models/rglru.py.  What differs:
 # * impl="kernel" is the counterpart of JAX's impl="pallas": the scan goes
 #   to the hand-written CUDA kernel (kernels/rglru_scan; its plain version
-#   on a CPU tensor).  impl="reference" runs the plain sequential scan
-#   (kernels/rglru_scan/ref.py) where JAX runs lax.associative_scan: the
-#   two sum in another order and agree to about 1e-6 in f32, not bit for
-#   bit.
+#   on a CPU tensor).  impl="reference" and impl="chunked" run the plain
+#   sequential scan (kernels/rglru_scan/ref.py) where JAX runs
+#   lax.associative_scan for every impl but "pallas": the two sum in
+#   another order and agree to about 1e-6 in f32, not bit for bit.  An
+#   impl name the port does not know raises ValueError.
 # * softplus is written as jax.nn.softplus computes it, logaddexp(x, 0).
 # * rglru_params draws from a torch.Generator (other numbers than JAX's
 #   keys; tests convert JAX's weights with convert.params_from_jax);
@@ -86,14 +87,11 @@ def _scan(a: torch.Tensor, gx: torch.Tensor, impl: str) -> torch.Tensor:
         from ..kernels.rglru_scan.ops import rglru_scan
 
         return rglru_scan(a, gx)
-    if impl == "reference":
+    if impl in ("reference", "chunked"):
         from ..kernels.rglru_scan.ref import rglru_reference
 
         return rglru_reference(a, gx)
-    raise NotImplementedError(
-        f"rglru impl {impl!r} is not ported to torch yet (ROADMAP, module item 7); "
-        "use 'reference' or 'kernel'"
-    )
+    raise ValueError(f"unknown rglru impl {impl!r}; use 'reference', 'kernel' or 'chunked'")
 
 
 def rglru_full(p: Dict, x: torch.Tensor, cfg: ModelConfig, impl: str = "reference",

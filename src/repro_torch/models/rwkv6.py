@@ -2,7 +2,10 @@
 # * impl="kernel" is the counterpart of JAX's impl="pallas": the scan goes
 #   to the hand-written CUDA kernel (kernels/rwkv6_scan; its plain version
 #   on a CPU tensor).  impl="chunked" (_rwkv_chunked, rwkv_chunked_bhtd) is
-#   not ported yet and raises (ROADMAP, module item 7).
+#   plain torch, as in JAX: the bfloat16 products with f32 accumulation are
+#   f32 products of operands rounded to bfloat16 (exact products, f32
+#   sums; cuBLAS on the card), and lax.scan over the chunks is a Python
+#   loop.  An impl name the port does not know raises ValueError.
 # * impl="reference" runs the kernel's plain version (the JAX step loop as
 #   a loop over the tokens, kernels/rwkv6_scan/ref.py) where JAX runs its
 #   own lax.scan of the same steps.
@@ -12,8 +15,8 @@
 # * rwkv_decode_step returns new tensors, as JAX does; the transformer's
 #   decode_step copies them into the cache in place.
 # * rwkv_scan_full(..., return_state=True) also returns the decode cache's
-#   leaves (S from the scan, x_last), which the JAX prefill recomputes
-#   (transformer._rwkv_state_after).
+#   leaves (S from the scan, or the state the chunk loop carries out, and
+#   x_last), which the JAX prefill recomputes (transformer._rwkv_state_after).
 # * with_logical is gone (a no-op on one card); rwkv_specs and
 #   rwkv_state_specs are left out (sharding only).
 """RWKV-6 "Finch" time-mix block (arXiv:2404.05892), attention-free.
@@ -25,7 +28,8 @@ State: one matrix S in R^{dh x dh} per head.  Recurrence per token t:
 
 with w_t = exp(-exp(decay_t)) computed from the token (the "dynamic decay"
 that distinguishes v6 from v5).  ``repro_torch.kernels.rwkv6_scan`` holds
-the kernel and its step-by-step plain version.
+the kernel and its step-by-step plain version; ``impl="chunked"`` is the
+chunked formulation (parallel within a chunk, sequential across chunks).
 
 Token-shift mixing (lerp between x_t and x_{t-1}) follows the RWKV design;
 the low-rank "data-dependent lerp" (ddlerp) uses a single small MLP per
@@ -128,17 +132,89 @@ def rwkv_scan_full(
         y, S = rwkv6_reference(*(a.transpose(1, 2) for a in (r, k, v, w)), p["bonus_u"],
                                return_state=True)
         y = y.transpose(1, 2)
+    elif impl == "chunked":
+        y, S = _rwkv_chunked(r, k, v, w, p["bonus_u"], return_state=True)
     else:
-        raise NotImplementedError(
-            f"rwkv impl {impl!r} is not ported to torch yet (ROADMAP, module item 7); "
-            "use 'reference' or 'kernel'"
-        )
+        raise ValueError(f"unknown rwkv impl {impl!r}; use 'reference', 'kernel' or 'chunked'")
 
     y = y.reshape(b, s, d).to(x.dtype)
     y = rms_norm(y, p["ln_x"], cfg.norm_eps)     # group-norm stand-in
     y = y * activation_fn("silu")(g)
     out = matmul(y, p["w_o"])
     return (out, {"S": S, "x_last": x[:, -1]}) if return_state else out
+
+
+def _bf16_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum of ``a`` and ``b`` rounded to bfloat16, accumulated in f32
+    (JAX's bfloat16 einsum with preferred_element_type=f32)."""
+    return torch.einsum(eq, a.bfloat16().float(), b.bfloat16().float())
+
+
+def _clamp(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, -30.0, 30.0)
+
+
+def _rwkv_chunked(r, k, v, w, u, chunk: int = 128, return_state: bool = False):
+    """Chunked RWKV-6 on (B, S, H, D): :func:`rwkv_chunked_bhtd` on the
+    transposed views, so the same math.  (JAX writes this layout out on its
+    own to spare XLA the transposes' copies; torch's products and reshapes
+    take the strided views as they are.)
+
+    The model's decay parameterization (w = exp(-exp(-6 +- 1.3)) >= 0.99 per
+    step) keeps in-chunk log-decay sums far from the clamp bound at 128.
+    With ``return_state`` also returns the state S after the last chunk.
+    """
+    y, S = rwkv_chunked_bhtd(*(x.transpose(1, 2) for x in (r, k, v, w)), u, chunk=chunk,
+                             return_state=True)
+    y = y.transpose(1, 2)
+    return (y, S) if return_state else y
+
+
+def rwkv_chunked_bhtd(r, k, v, w, u, chunk: int = 64, return_state: bool = False):
+    """Chunked RWKV-6: matmul form inside chunks, state carried across.
+
+    Within a chunk of C tokens, with per-dim log-decays L_t = sum_{s<=t} ln w_s:
+        y_t = (r_t . e^{L_{t-1}}) S_in
+            + sum_{s<t} <r_t . e^{L_{t-1}-L_s}, k_s> v_s + <r_t . u, k_t> v_t
+        S_out = diag(e^{L_C}) S_in + sum_s (k_s . e^{L_C-L_s})^T v_s
+    so the intra-chunk part is one masked (C x C) product per head, and the
+    state is read once per chunk instead of once per token.  Exponent
+    differences are clamped at +-30: heavier-decayed terms are below f32
+    resolution of the survivors anyway.  Inputs (B, H, T, D); with
+    ``return_state`` also returns the state S after the last chunk.
+    """
+    b, h, t, dh = r.shape
+    c = min(chunk, t)
+    assert t % c == 0
+    nc = t // c
+    logw = torch.log(torch.clamp(w.float(), min=1e-30))
+    rc = r.reshape(b, h, nc, c, dh)
+    kc = k.reshape(b, h, nc, c, dh)
+    vc = v.reshape(b, h, nc, c, dh)
+    lw = logw.reshape(b, h, nc, c, dh)
+    L = torch.cumsum(lw, dim=3)                 # L_t (inclusive)
+    L_prev = L - lw                             # L_{t-1}
+    L_end = L[:, :, :, -1:, :]                  # L_C
+    r_hat = rc * torch.exp(_clamp(L_prev))      # r_t e^{L_{t-1}}
+    k_hat = kc * torch.exp(_clamp(-L))          # k_s e^{-L_s}
+    k_end = kc * torch.exp(_clamp(L_end - L))   # k_s e^{L_C - L_s}
+
+    # the big products take bfloat16 operands with f32 accumulation; the
+    # exponent math above stays f32
+    A = _bf16_product("bhncd,bhnsd->bhncs", r_hat, k_hat)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device), diagonal=-1)
+    A = torch.where(mask[None, None, None], A, 0.0)
+    diag = torch.einsum("bhncd,bhncd->bhnc", rc * u[None, :, None, None, :], kc)
+    y_intra = _bf16_product("bhncs,bhnsv->bhncv", A, vc) + diag[..., None] * vc
+    S_contrib = _bf16_product("bhnsd,bhnsv->bhndv", k_end, vc)
+
+    S = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    y_inter = []
+    for n in range(nc):
+        y_inter.append(torch.einsum("bhcd,bhdv->bhcv", r_hat[:, :, n], S))
+        S = torch.exp(_clamp(L_end[:, :, n, 0]))[..., :, None] * S + S_contrib[:, :, n]
+    y = (y_intra + torch.stack(y_inter, dim=2)).reshape(b, h, t, dh)
+    return (y, S) if return_state else y
 
 
 def rwkv_init_state(cfg: ModelConfig, n_layers: int, batch: int, device) -> Dict:

@@ -1,8 +1,8 @@
-# Port of repro/models/transformer.py: the dense path and the layer kinds
-# "rec" (RG-LRU, RecurrentGemma) and "rwkv" (RWKV-6).  What differs:
-# * MoE layers raise NotImplementedError (ROADMAP, module item 7), so the
-#   aux loss is 0 on every path the port has; param_specs and cache_specs
-#   are left out (sharding; module item 10).
+# Port of repro/models/transformer.py: the dense and MoE paths and the
+# layer kinds "rec" (RG-LRU, RecurrentGemma) and "rwkv" (RWKV-6).  What
+# differs:
+# * param_specs and cache_specs are left out (sharding; ROADMAP, module
+#   item 10).
 # * lax.scan over stacked layer parameters is a Python loop over index i of
 #   the same stacked (n, ...) tensors, so a JAX parameter tree converts leaf
 #   for leaf (convert.params_from_jax).  remat has no counterpart: autograd
@@ -24,13 +24,14 @@
 # * An embedding lookup of an id outside [-V, V) gives NaN rows and a
 #   negative id in range counts from the end, as jnp.take does.
 # * The second norm of a layer reads the residual sum after the mixer
-#   unrounded, in f32 (_mlp_half), as XLA's compiled scan body does.
+#   unrounded, in f32 (_mlp_half), as XLA's compiled scan body does; the
+#   MoE layer (moe_apply) reads the same normed input as the MLP.
 # * with_logical is gone (a no-op on one card).
 """LM assembly: embed -> layer loop -> logits.
 
 Per layer kind:
 
-  attn  — GQA attention (optionally local-window) + gated MLP
+  attn  — GQA attention (optionally local-window) + gated MLP (or MoE)
   rec   — RG-LRU recurrence + gated MLP
   rwkv  — RWKV-6 time-mix + gated MLP (channel-mix swapped for SwiGLU of the
           same width; parameter-count equivalent)
@@ -65,6 +66,7 @@ from .layers import (
     rms_norm,
     rope_angles,
 )
+from .moe import moe_apply, moe_params
 from .rglru import (
     rglru_decode_step,
     rglru_full,
@@ -81,15 +83,13 @@ from .rwkv6 import (
 Params = Dict[str, Any]
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to torch yet (ROADMAP, module item 7)")
+def _layer_uses_moe(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.moe is not None and kind == "attn"
 
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
     if kind not in ("attn", "rec", "rwkv"):
         raise ValueError(kind)
-    if cfg.moe is not None:
-        raise _unported("the MoE layer")
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -104,12 +104,16 @@ def _sublayer_params(cfg: ModelConfig, kind: str, gen: torch.Generator, n: int) 
     _check_kind(cfg, kind)
     dt = dtype_of(cfg)
     mixer = {"attn": attn_params, "rec": rglru_params, "rwkv": rwkv_params}[kind]
-    return {
+    p = {
         "norm1": torch.zeros((n, cfg.d_model), dtype=dt, device=gen.device),
         "norm2": torch.zeros((n, cfg.d_model), dtype=dt, device=gen.device),
         kind: mixer(cfg, gen, n),
-        "mlp": mlp_params(cfg, gen, n),
     }
+    if _layer_uses_moe(cfg, kind):
+        p["moe"] = moe_params(cfg, gen, n)
+    else:
+        p["mlp"] = mlp_params(cfg, gen, n)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -133,7 +137,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 def _apply_sublayer(
     cfg: ModelConfig, kind: str, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
     impl: str,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_kind(cfg, kind)
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if kind == "attn":
@@ -145,8 +149,11 @@ def _apply_sublayer(
     return _mlp_half(cfg, lp, x, h)
 
 
-def _mlp_half(cfg: ModelConfig, lp: Dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x + y, then the second norm and the MLP, then the second residual.
+def _mlp_half(cfg: ModelConfig, lp: Dict, x: torch.Tensor, y: torch.Tensor,
+              decode: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x + y, then the second norm and the MLP (or the MoE layer, dense
+    when ``decode``), then the second residual.  Returns it and the MoE aux
+    loss (0.0 for an MLP).
 
     Compiled XLA (excess precision allowed, its default) hands the second
     norm the sum ``x + y`` unrounded, in f32, while the residual stream
@@ -155,19 +162,26 @@ def _mlp_half(cfg: ModelConfig, lp: Dict, x: torch.Tensor, y: torch.Tensor) -> t
     """
     s = x.float() + y.float()
     h = rms_norm(s, lp["norm2"], cfg.norm_eps).to(x.dtype)
-    return s.to(x.dtype) + mlp_apply(lp["mlp"], h, cfg)
+    if "moe" in lp:
+        out, aux = moe_apply(lp["moe"], h, cfg, decode=decode)
+    else:
+        out, aux = mlp_apply(lp["mlp"], h, cfg), 0.0
+    return s.to(x.dtype) + out, aux
 
 
 def _run_groups(
     cfg: ModelConfig, params: Params, x: torch.Tensor, positions: torch.Tensor, impl: str,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (pattern, rep) in enumerate(cfg.groups):
         gparams = params[f"group{gi}"]
         for i in range(rep):
             layer_params = _layer(gparams, i)
             for pi, kind in enumerate(pattern):
-                x = _apply_sublayer(cfg, kind, layer_params[f"pos{pi}"], x, positions, impl)
-    return x
+                x, aux = _apply_sublayer(cfg, kind, layer_params[f"pos{pi}"], x, positions,
+                                         impl)
+                aux_total = aux_total + aux
+    return x, aux_total
 
 
 def _take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -205,8 +219,8 @@ def forward(
     Returns (logits (B, S_total, V), aux_loss)."""
     x = _embed(cfg, params, tokens, patches)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x = _run_groups(cfg, params, x, positions, impl)
-    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _run_groups(cfg, params, x, positions, impl)
+    return _logits(cfg, params, x), aux
 
 
 def loss_and_aux(
@@ -280,7 +294,7 @@ def decode_step(
                                                     lc["x_last"][i], cfg)
                     lc["S"][i].copy_(S)
                     lc["x_last"][i].copy_(x_last)
-                x = _mlp_half(cfg, lp, x, y)
+                x, _ = _mlp_half(cfg, lp, x, y, decode=True)
         new_cache[f"group{gi}"] = gcache
     return _logits(cfg, params, x), new_cache
 
@@ -319,7 +333,7 @@ def prefill(
                 else:
                     y, new_layer_cache[f"pos{pi}"] = rwkv_scan_full(lp["rwkv"], hin, cfg,
                                                                     impl=impl, return_state=True)
-                x = _mlp_half(cfg, lp, x, y)
+                x, _ = _mlp_half(cfg, lp, x, y)
             per_layer.append(new_layer_cache)
         cache[f"group{gi}"] = {
             pos: {leaf: torch.stack([c[pos][leaf] for c in per_layer]) for leaf in leaves}

@@ -362,6 +362,75 @@ def test_serve_recurrent_on_device_uses_the_kernels_and_resumes(arch, width, per
     np.testing.assert_array_equal(resumed["tokens"], clean["tokens"])
 
 
+# --------------------------------------------------------------- MoE layer
+@pytest.mark.parametrize("route", ["dense", "sort-g1", "sort-g4", "decode"])
+def test_moe_apply_on_device_equals_cpu(route):
+    """float32: the card's router picks the same experts as the CPU's and
+    the layer's output agrees to 1e-5 (abs and rel); capacity factor 0.5,
+    so the sort routes drop slots."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe, scaled_down
+
+    cfg = dataclasses.replace(scaled_down(get_arch("qwen2-moe-a2.7b"), width=128),
+                              dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, impl="dense" if route == "dense" else "sort",
+        dispatch_groups=4 if route == "sort-g4" else 1, capacity_factor=0.5))
+    p = moe.moe_params(cfg, torch.Generator().manual_seed(0), 1)
+    p = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict) else v[0])
+         for k, v in p.items()}
+    x = torch.randn(4, 64, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    decode = route == "decode"
+    want, want_aux = moe.moe_apply(p, x, cfg, decode=decode)
+    pc = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict) else v.cuda())
+          for k, v in p.items()}
+    _, experts, _ = moe._route(x.reshape(-1, cfg.d_model).cuda(), pc["router"], cfg.moe)
+    _, want_experts, _ = moe._route(x.reshape(-1, cfg.d_model), p["router"], cfg.moe)
+    assert torch.equal(experts.cpu(), want_experts)
+    got, aux = moe.moe_apply(pc, x.cuda(), cfg, decode=decode)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-6)
+
+
+def test_serve_moe_on_device_uses_the_kernel_and_resumes(tmp_path):
+    """A scaled Qwen1.5-MoE (width 512, 4 heads of D 128, 2 layers): the
+    prefill runs flash_attention once per layer at D 128, and the resumed
+    stream equals the uninterrupted one."""
+    from repro_torch.launch import serve
+
+    base = ["--arch", "qwen2-moe-a2.7b", "--decode-steps", "24", "--flush-every", "8",
+            "--width", "512"]
+    before = flash_attention.launches
+    clean = serve.main(base + ["--workdir", str(tmp_path / "a")])
+    assert flash_attention.launches == before + 2
+    resumed = serve.main(base + ["--workdir", str(tmp_path / "b"), "--inject-failure-at", "16"])
+    assert resumed["resumed"]
+    np.testing.assert_array_equal(resumed["tokens"], clean["tokens"])
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_chunked_rwkv_on_device_against_the_kernel(chunk):
+    """The chunked RWKV-6 form (plain torch, cuBLAS products) against the
+    rwkv6_scan kernel at the model's decay: 2e-2 of the largest entry, for
+    the output and the final state."""
+    from repro_torch.models.rwkv6 import _rwkv_chunked
+
+    gen = torch.Generator(device="cuda").manual_seed(chunk)
+    b, s, h, d = 2, 256, 4, 64
+    r, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda") * 0.5 for _ in range(3))
+    w = torch.exp(-torch.exp(-6.0 + 0.5 * torch.randn(b, s, h, d, generator=gen, device="cuda")))
+    u = torch.randn(h, d, generator=gen, device="cuda") * 0.3
+    before = rwkv6_scan.launches
+    want, want_state = rwkv6_scan(r, k, v, w, u, return_state=True)
+    assert rwkv6_scan.launches == before + 1
+    got, state = _rwkv_chunked(r, k, v, w, u, chunk=chunk, return_state=True)
+    for a, bb in ((got, want), (state, want_state)):
+        rel = float((a - bb).abs().max() / bb.abs().max())
+        assert rel < 2e-2, rel
+
+
 # ------------------------------------------ the HPC suite and lm-train apps
 _GOLDENS = os.path.join(os.path.dirname(__file__), "golden", "campaign_goldens.json")
 

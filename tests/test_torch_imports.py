@@ -39,7 +39,7 @@ def test_no_jax_or_reference_imports_in_port_sources():
                 "core/lane_driver.py", "optim/adamw.py", "optim/schedule.py",
                 "optim/compression.py", "data/pipeline.py", "checkpoint/serialization.py",
                 "checkpoint/manager.py", "launch/train.py", "launch/steps.py",
-                "core/fleetsim.py"):
+                "core/fleetsim.py", "models/moe.py"):
         assert os.path.join("repro_torch", mod) in names, mod
     for path in files:
         with open(path) as f:
@@ -95,8 +95,8 @@ def test_port_campaigns_of_the_new_apps_leave_jax_unloaded():
 
 
 def test_port_serving_leaves_jax_unloaded(tmp_path):
-    """The decode app and the server, in a fresh interpreter, load neither
-    jax, ml_dtypes nor anything of the JAX package."""
+    """The decode app and the server (a dense and an MoE arch), in a fresh
+    interpreter, load neither jax, ml_dtypes nor anything of the JAX package."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -105,6 +105,8 @@ def test_port_serving_leaves_jax_unloaded(tmp_path):
         "app = ci_app('decode', device='cpu')\n"
         "s = app.run_iteration(app.init(0))\n"
         f"serve.main(['--device', 'cpu', '--decode-steps', '8', '--workdir', {str(tmp_path)!r}])\n"
+        "serve.main(['--device', 'cpu', '--arch', 'qwen2-moe-a2.7b', '--decode-steps', '4',\n"
+        f"            '--workdir', {str(tmp_path / 'moe')!r}])\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes', 'repro')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'ml_dtypes.', 'repro.')))\n"
         "print('LOADED', bad)\n"

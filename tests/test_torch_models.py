@@ -201,9 +201,13 @@ def test_out_of_range_token_embeds_as_nan_like_jax():
 
 
 def test_unported_paths_name_their_roadmap_item():
+    """Module item 7 is ported: an MoE config builds and runs (its parity
+    with JAX: tests/test_torch_moe.py, tests/test_torch_arch_smoke.py)."""
     cfg = scaled_down(get_arch("qwen2-moe-a2.7b"), width=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP, module item 7"):
-        init_params(cfg, torch.Generator().manual_seed(0))
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    assert "moe" in params["group0"]["pos0"] and "mlp" not in params["group0"]["pos0"]
+    logits, aux = forward(cfg, params, torch.zeros((1, 32), dtype=torch.int32))
+    assert logits.shape == (1, 32, cfg.vocab) and float(aux) > 0
     _, tcfg = _cfgs("float32")
     x = torch.zeros(1, 8, tcfg.d_model)
     p = {k: torch.zeros(tcfg.d_model, tcfg.d_model) for k in ("wq", "wk", "wv", "wo")}
