@@ -122,6 +122,20 @@ Phases, in order; any failure ends the run with a nonzero exit:
    bf16 kernel prefill timed; (c) ``flash_attention`` at Qwen's shape,
    timed in phase 5.
 
+18. static analysis (slice 10): ``analyze_app`` on the card for the seven
+   HPC apps at CI size, each held against the same analysis on the CPU in
+   this process (traced flags, classes, decisions, write_bytes, uncertain
+   regions equal; confidence and damping within 1e-4) and against
+   ``tests/golden/static_agreement.json``'s agreement pattern (sor,
+   pagerank, kmeans, heat and montecarlo agree; mg and cg miss exactly as
+   annotated); ``run_workflow`` on sor on the card with ``static`` (0
+   tests), ``static+verify`` (80) and ``adaptive`` (the default sampler and
+   the exact one, the counts of ``tests/golden/adaptive_goldens.json``),
+   each giving the JAX plan; the determinism lint over every app's batched
+   kernels built on the card (no finding); then sor's static plan, derived
+   at grid 8192 with no campaign, deployed as phase 4 deploys the measured
+   one, every delta flush through ``delta_snapshot``.
+
 Every campaign's phase A goes through the apps' lane drivers; a driver that
 raises and falls back to the host loop fails the run.
 
@@ -154,6 +168,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import host_array, state_to_torch  # noqa: E402
 from repro_torch import resolve_device  # noqa: E402
+from repro_torch.analysis import analyze_app, lint_app  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     POLICIES,
     CrashTester,
@@ -161,6 +176,7 @@ from repro_torch.core import (  # noqa: E402
     FlushPolicy,
     NVMArena,
     PersistPlan,
+    SequentialConfig,
     WorkflowConfig,
     run_workflow,
 )
@@ -169,7 +185,7 @@ from repro_torch.core.faults import get_fault_model  # noqa: E402
 from repro_torch.core.manager import flatten_state  # noqa: E402
 from repro_torch.hpc.common import laplacian_apply  # noqa: E402
 from repro_torch.hpc.sor import SORApp, _rb_sor  # noqa: E402
-from repro_torch.hpc.suite import ci_app, default_cache, get_app  # noqa: E402
+from repro_torch.hpc.suite import app_names, ci_app, default_cache, get_app  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.delta_snapshot import dirty_block_mask  # noqa: E402
 from repro_torch.kernels.delta_snapshot.ref import dirty_block_mask_reference  # noqa: E402
@@ -242,6 +258,16 @@ DEPLOY_SLICE7 = (
     ("mg", dict(grid=DEPLOY_GRID)),
     ("montecarlo", dict(batch=1 << 26)),
 )
+#: static analysis (phase 18): the suite, its goldens, and the pins of
+#: tests/test_static_plan.py: the apps whose static persist regions equal
+#: the measured ones, and per miss (static-only, measured-only) regions
+STATIC_SUITE = ("sor", "pagerank", "kmeans", "heat", "mg", "cg", "montecarlo")
+STATIC_AGREEMENT = os.path.join(ROOT, "tests", "golden", "static_agreement.json")
+ADAPTIVE_GOLDENS = os.path.join(ROOT, "tests", "golden", "adaptive_goldens.json")
+STATIC_AGREE = {"sor", "pagerank", "kmeans", "heat", "montecarlo"}
+STATIC_MISSES = {"mg": ([2], [1]), "cg": ([1], [])}
+#: sor's static+verify workflow at n_tests 40: baseline and best campaigns only
+STATIC_VERIFY_TESTS = 80
 #: the serving path: StableLM-2-1.6B unscaled, 4 prompts of 1024 tokens
 SERVE_ARCH = "stablelm-1.6b"
 SERVE_PROMPTS, SERVE_PROMPT_LEN, SERVE_STEPS, SERVE_FLUSH_EVERY = 4, 1024, 64, 16
@@ -698,8 +724,9 @@ def delta_launches_expected(plan: PersistPlan, flushes_per_iter: int = 1) -> int
     return (flushes_per_iter * (DEPLOY_ITERS + AFTER_RESTORE_ITERS) - 1) * len(plan.objects)
 
 
-def phase_deploy(dev: str, plan: PersistPlan) -> dict:
-    app = SORApp(grid=DEPLOY_GRID, device=dev)
+def phase_deploy(dev: str, plan: PersistPlan, label: str = "run_workflow's plan",
+                 app=None) -> dict:
+    app = app if app is not None else SORApp(grid=DEPLOY_GRID, device=dev)
     g = app.grid
     fresh = app.init(0)
     e_fresh = _energy(torch.from_numpy(fresh["u"]).to(dev), torch.from_numpy(fresh["b"]).to(dev), g)
@@ -707,7 +734,7 @@ def phase_deploy(dev: str, plan: PersistPlan) -> dict:
     def energy(s):
         return _energy(s["u"], s["b"], g)
 
-    return deploy(dev, "sor", app, plan, "run_workflow's plan",
+    return deploy(dev, "sor", app, plan, label,
                   restore_verify=lambda s, k: energy(s) < e_fresh,
                   extra=("energy", energy, lambda v: all(b < a for a, b in zip(v, v[1:]))))
 
@@ -2294,6 +2321,120 @@ def _leaves(tree):
             yield v
 
 
+# ------------------------------------------------------------------ 18. static
+def _check_static_equal(name: str, sp, ref) -> None:
+    """The card's StaticPlan against the CPU's: the same traced flags,
+    classes, decisions, write_bytes and uncertain regions; confidence and
+    damping within 1e-4."""
+    pairs = [(f"region {r.name}", (r.traced, r.decision, r.write_bytes),
+              (c.traced, c.decision, c.write_bytes), r.confidence, c.confidence)
+             for r, c in zip(sp.regions, ref.regions)]
+    pairs += [(f"object {o.name}", (o.klass, o.decision), (c.klass, c.decision),
+               o.confidence, c.confidence) for o, c in zip(sp.objects, ref.objects)]
+    for what, got, want, conf, conf_ref in pairs:
+        if got != want or abs(conf - conf_ref) > 1e-4:
+            raise AssertionError(f"{name} {what}: card {got} {conf}, CPU {want} {conf_ref}")
+    for o, c in zip(sp.objects, ref.objects):
+        if (o.damping is None) != (c.damping is None) or (
+                o.damping is not None and abs(o.damping - c.damping) > 1e-4):
+            raise AssertionError(f"{name} {o.name}: damping {o.damping} on the card, "
+                                 f"{c.damping} on the CPU")
+    if (len(sp.regions), len(sp.objects), sp.uncertain_regions()) != \
+            (len(ref.regions), len(ref.objects), ref.uncertain_regions()):
+        raise AssertionError(f"{name}: the card's plan has other regions or objects")
+
+
+def phase_static(dev: str) -> dict:
+    """Phase 18: the static analyzer and its plan sources on the card, the
+    lint over the kernels built there, and sor's static plan deployed."""
+    with open(STATIC_AGREEMENT) as f:
+        golden = json.load(f)
+    out: dict = {"analyze_ms": {}, "workflow_ms": {}}
+    agree = set()
+    for name in STATIC_SUITE:
+        app = ci_app(name, device=dev)
+        t0 = time.perf_counter()
+        sp = analyze_app(app, cache=default_cache(app))
+        torch.cuda.synchronize()
+        out["analyze_ms"][name] = (time.perf_counter() - t0) * 1e3
+        cpu_app = ci_app(name, device="cpu")
+        _check_static_equal(name, sp, analyze_app(cpu_app, cache=default_cache(cpu_app)))
+        static = {r.index for r in sp.regions if r.decision == "persist"}
+        measured = set(golden[name]["persist_regions"])
+        if static == measured:
+            agree.add(name)
+        elif (sorted(static - measured), sorted(measured - static)) != STATIC_MISSES.get(name):
+            raise AssertionError(f"{name}: static regions {sorted(static)} against measured "
+                                 f"{sorted(measured)}, not the annotated miss")
+        log(f"[static] {name} on {dev} in {out['analyze_ms'][name]:.1f} ms: regions "
+            f"{[(r.name, r.traced, r.decision, round(r.confidence, 4), r.write_bytes) for r in sp.regions]}, "
+            f"objects {[(o.name, o.klass, o.decision, o.damping) for o in sp.objects]}, "
+            f"uncertain {sp.uncertain_regions()}; equal to the CPU's")
+    if agree != STATIC_AGREE:
+        raise AssertionError(f"static agreement {sorted(agree)}, want {sorted(STATIC_AGREE)}")
+
+    with open(ADAPTIVE_GOLDENS) as f:
+        adaptive = json.load(f)["sor"]
+    app = ci_app("sor", device=dev)
+    cache = default_cache(app)
+    runs = (("static", "static", None, 0),
+            ("static+verify", "static+verify", None, STATIC_VERIFY_TESTS),
+            ("adaptive", "adaptive", None, adaptive["default_is"]["tests_executed"]),
+            ("adaptive_exact", "adaptive", SequentialConfig(sampler_bias=0.0),
+             adaptive["exact"]["tests_executed"]))
+    out["tests_executed"] = {}
+    for label, source, stopping, want in runs:
+        t0 = time.perf_counter()
+        wf = run_workflow(app, WorkflowConfig(n_tests=40, seed=0, cache=cache,
+                                              plan_source=source, stopping=stopping))
+        out["workflow_ms"][label] = (time.perf_counter() - t0) * 1e3
+        out["tests_executed"][label] = wf.tests_executed
+        log(f"[static] sor run_workflow {label} on {dev}: {wf.plan}, "
+            f"{wf.tests_executed} tests in {out['workflow_ms'][label]:.1f} ms")
+        if (wf.plan.objects, wf.plan.region_freq) != JAX_SOR_PLAN or wf.tests_executed != want:
+            raise AssertionError(f"sor {label}: {wf.plan} after {wf.tests_executed} tests, "
+                                 f"want {JAX_SOR_PLAN} after {want}")
+
+    t0 = time.perf_counter()
+    checked = 0
+    for name in app_names():
+        lapp = get_app(name, device=dev)
+        if not lapp.supports_batched_step:
+            continue
+        for kname, findings in lint_app(lapp).items():
+            checked += 1
+            if findings:
+                raise AssertionError(f"lint {name}/{kname}: {[str(x) for x in findings]}")
+    out["lint_kernels"] = checked
+    out["lint_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"[static] determinism lint on {dev}: {checked} kernels, 0 findings in "
+        f"{out['lint_ms']:.1f} ms")
+    if checked < 14:
+        raise AssertionError(f"the lint checked {checked} kernels, want every app's 14")
+    if WorkflowConfig().cache.block_bytes != BLOCK_BYTES:
+        raise AssertionError("the default cache's block size is not the deployment's")
+
+    big = SORApp(grid=DEPLOY_GRID, device=dev)
+    t0 = time.perf_counter()
+    # a static plan reads only the cache's block size (64 bytes, as the
+    # deployment's), so the default cache spares an init of the 8192 grid
+    wf = run_workflow(big, WorkflowConfig(seed=0, plan_source="static"))
+    out["static_plan_ms"] = (time.perf_counter() - t0) * 1e3
+    plan = wf.plan
+    log(f"[static] sor's static plan at grid {DEPLOY_GRID} on {dev}: {plan}, "
+        f"{wf.tests_executed} tests, {out['static_plan_ms']:.1f} ms")
+    if (plan.objects, plan.region_freq) != JAX_SOR_PLAN or wf.tests_executed != 0:
+        raise AssertionError(f"sor's static plan at grid {DEPLOY_GRID}: {plan}")
+    dirty_block_mask.launches = 0
+    out["deploy"] = phase_deploy(dev, plan, "the static plan", app=big)
+    out["delta_launches"] = dirty_block_mask.launches
+    want = delta_launches_expected(plan)
+    if out["delta_launches"] != want:
+        raise AssertionError(f"delta_snapshot launched {out['delta_launches']} times on the "
+                             f"static plan's deployment, expected {want}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2368,6 +2509,13 @@ def main() -> int:
     log(f"[slice9] phase 17 {time.perf_counter() - t0:.1f} s; "
         f"the whole run {time.perf_counter() - t_start:.1f} s")
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    static = phase_static(dev)
+    log(f"[static] summary {json.dumps(static)}")
+    log(f"[slice10] phase 18 {time.perf_counter() - t0:.1f} s; "
+        f"the whole run {time.perf_counter() - t_start:.1f} s")
+
     log(gpu)
     print(json.dumps({"kernels": [{
         "name": "delta_snapshot",
@@ -2376,14 +2524,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/delta_snapshot/kernel.py:26",
         "launches": launches + served["delta_launches"] + rwkv["delta_launches"]
         + rg["delta_launches"] + sum(r["delta_launches"] for r in suite.values())
-        + trained["delta_launches"] + qwen["delta_launches"],
+        + trained["delta_launches"] + qwen["delta_launches"] + static["delta_launches"],
         "launches_by_path": {"sor_deploy": launches, "serve_stablelm": served["delta_launches"],
                              "serve_rwkv6": rwkv["delta_launches"],
                              "serve_recurrentgemma": rg["delta_launches"],
                              **{f"{name.replace('-', '_')}_deploy": r["delta_launches"]
                                 for name, r in suite.items()},
                              "train_stablelm": trained["delta_launches"],
-                             "serve_qwen2_moe": qwen["delta_launches"]},
+                             "serve_qwen2_moe": qwen["delta_launches"],
+                             "sor_static_deploy": static["delta_launches"]},
         "max_abs_err": max_err,
         "exact": max_err == 0,
         "ms": kern["ms"],

@@ -1,5 +1,4 @@
-# Port of repro/core/__init__.py: the same exports, less those of the module
-# not ported yet: artifacts (ROADMAP, module item 9).
+# Port copy of repro/core/__init__.py, unchanged apart from this header.
 """EasyCrash core: the paper's contribution as a composable library.
 
 Emulation/characterization layer (paper §3–5):
@@ -60,15 +59,25 @@ from .faults import (
     fault_model_from_spec,
     get_fault_model,
 )
-from .delta_persist import delta_block_mask, persist_mask_for
-from .fleetsim import (
-    ArrivalProcess,
-    FleetConfig,
-    FleetResult,
-    ServiceModel,
-    fleet_frontier,
-    simulate_fleet,
+from .artifacts import (
+    STATIC_PLAN_KIND,
+    ArtifactError,
+    PlanArtifact,
+    ProfileArtifact,
+    StaticPlanArtifact,
+    WorkflowArtifact,
+    load_plan,
+    load_profile,
+    load_static_plan,
+    load_workflow,
+    profile_from_workflow,
+    replay_plan,
+    save_plan,
+    save_profile,
+    save_static_plan,
+    save_workflow,
 )
+from .delta_persist import delta_block_mask, persist_mask_for
 from .efficiency import (
     SystemConfig,
     efficiency_with,
@@ -91,6 +100,14 @@ from .sysim import (
     scaled_trace,
     simulate_policy,
     trace_from_spec,
+)
+from .fleetsim import (
+    ArrivalProcess,
+    FleetConfig,
+    FleetResult,
+    ServiceModel,
+    fleet_frontier,
+    simulate_fleet,
 )
 from .manager import EasyCrashManager, FlushPolicy, flatten_state, unflatten_state
 from .regions import BatchedKernel, IterativeApp, Region, State, VerifyResult
@@ -116,6 +133,11 @@ __all__ = [
     "FAULT_MODELS", "BitFlip", "CorrelatedRegion", "FaultModel", "MultiCrash",
     "PowerFail", "TornWrite", "all_fault_models", "fault_model_from_spec",
     "get_fault_model",
+    "ArtifactError", "PlanArtifact", "ProfileArtifact", "StaticPlanArtifact",
+    "WorkflowArtifact", "STATIC_PLAN_KIND",
+    "load_plan", "load_profile", "load_static_plan", "load_workflow",
+    "profile_from_workflow", "replay_plan", "save_plan", "save_profile",
+    "save_static_plan", "save_workflow",
     "SystemConfig", "delta_block_mask", "persist_mask_for",
     "efficiency_with", "efficiency_without", "expected_overhead",
     "persist_overhead_fraction", "scale_mtbf", "tau_threshold",

@@ -1,7 +1,4 @@
-# Port copy of repro/core/fleetsim.py.  What differs: FleetConfig.fingerprint
-# hashes its spec here (_payload_fingerprint, the same SHA-256 of the same
-# canonical JSON as artifacts.payload_fingerprint), since core/artifacts.py
-# is not copied yet (ROADMAP, module item 9).  Everything else is unchanged,
+# Port copy of repro/core/fleetsim.py, unchanged apart from this header,
 # reference fault 3 included: ArrivalProcess.rate_at raises on sin(inf)
 # when a subnormal rate puts the next arrival at infinity (ROADMAP §3).
 """Fleet-scale serving-under-failure simulator (the ROADMAP's "millions of
@@ -68,9 +65,7 @@ request tape.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import heapq
-import json
 import math
 from collections import deque
 from dataclasses import dataclass, field
@@ -89,12 +84,6 @@ from .sysim import (
 )
 
 FLEET_VERSION = 1
-
-
-def _payload_fingerprint(payload: Dict[str, object]) -> str:
-    """SHA-256 of the canonical strict JSON of ``payload``."""
-    return hashlib.sha256(json.dumps(payload, sort_keys=True, separators=(",", ":"),
-                                     allow_nan=False).encode()).hexdigest()
 
 #: event kinds, in deterministic tie-break order (heap entries carry a
 #: monotone sequence number, so same-time events process in push order)
@@ -255,7 +244,9 @@ class FleetConfig:
         }
 
     def fingerprint(self) -> str:
-        return _payload_fingerprint(self.spec())
+        from .artifacts import payload_fingerprint
+
+        return payload_fingerprint(self.spec())
 
 
 # ------------------------------------------------------------ fleet result

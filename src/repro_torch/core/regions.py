@@ -1,5 +1,7 @@
-# Port copy of repro/core/regions.py, unchanged apart from this header; its relative imports resolve inside repro_torch.
-# The port's BatchedKernel.fn is a torch function; nothing here traces it.
+# Port copy of repro/core/regions.py; its relative imports resolve inside
+# repro_torch.  What differs: the docstrings of BatchedKernel and
+# IterativeApp.batched_kernels, whose kernels are torch functions that the
+# port's lint traces with make_fx.
 """Application abstraction: iterative apps as chains of code regions.
 
 The paper models an HPC application as a main computation loop containing
@@ -56,11 +58,13 @@ class VerifyResult:
 @dataclass(frozen=True)
 class BatchedKernel:
     """One batched-lane kernel of a ``supports_batched_step`` app, exposed
-    for the bitwise-batchability lint (:mod:`repro.analysis.determinism_lint`).
+    for the bitwise-batchability lint (:mod:`repro_torch.analysis.determinism_lint`).
 
-    ``fn(*args)`` must be traceable by :func:`jax.make_jaxpr`; ``batched``
-    maps argument positions to the lane axis (axis 0 by convention).  Static
-    configuration (grid size, loop counts) is closed over, not passed.
+    ``fn(*args)`` is a torch function of tensors that
+    :func:`torch.fx.experimental.proxy_tensor.make_fx` can trace on its
+    ``args`` (no host read of an argument); ``batched`` maps argument
+    positions to the lane axis (axis 0 by convention).  Static configuration
+    (grid size, loop counts) is closed over, not passed.
     """
 
     name: str
@@ -117,10 +121,10 @@ class IterativeApp:
         return {}
 
     def batched_kernels(self) -> Tuple["BatchedKernel", ...]:
-        """The jax kernels behind ``run_iteration_batch``, for the
+        """The torch kernels behind ``run_iteration_batch``, for the
         bitwise-batchability lint.  Apps setting ``supports_batched_step``
         should expose every batched dispatch here; the lint (and CI) walks
-        each kernel's jaxpr for cross-lane reductions."""
+        each kernel's aten graph for cross-lane reductions."""
         return ()
 
     def restart_init(self, seed: int, persisted: Mapping[str, np.ndarray]) -> State:

@@ -1,10 +1,5 @@
-# Port copy of repro/core/workflow.py, apart from this header and one change: every
-# plan_source other than "measured" raises NotImplementedError, because the
-# static analyzer (repro/analysis) is not ported yet (ROADMAP, module item 9).
-# Kept only so the copy stays close to its original, and unreachable until
-# the analyzer is ported: the "static", "static+verify" and "adaptive"
-# branches of run_workflow, WorkflowConfig.stopping with adaptive_mode() and
-# resolved_stopping(), and the adaptive.py (SequentialConfig) machinery they use.
+# Port copy of repro/core/workflow.py, unchanged apart from this header; its
+# lazy import of analysis.classify resolves to the port's static analyzer.
 """The four-step EasyCrash workflow (paper §5.3).
 
 Step 1 — run a crash-test campaign without persistence, collecting per-object
@@ -824,11 +819,10 @@ def run_workflow(app: IterativeApp, config=None, /, **kwargs) -> WorkflowResult:
 
     static_plan = None
     if cfg.plan_source != "measured":
-        raise NotImplementedError(
-            f"plan_source={cfg.plan_source!r} needs the static analyzer, which "
-            "the torch port does not have yet (ROADMAP, module item 9); use "
-            "plan_source='measured'"
-        )
+        # lazy import: core must not import analysis at module load
+        from ..analysis.classify import analyze_app
+
+        static_plan = analyze_app(app, cache=cache, seed=seed)
 
     if cfg.plan_source == "static":
         # no campaigns at all: the dataflow classification is the plan

@@ -13,8 +13,10 @@
 #   1e-6 relative (other summation orders), and each lane is bitwise the
 #   serial one.  counts are sums of ones, exact in any order.
 # * advance_lanes runs core/lane_driver.py's device loop over _step_core,
-#   the tensor core of run_iteration_batch (a CUDA graph on the card;
-#   one_hot with its class count given reads nothing back on the card).
+#   the tensor core of run_iteration_batch (a CUDA graph on the card).
+# * The one-hot matrix is jax.nn.one_hot's own formula, assign == arange(k):
+#   torch's one_hot checks its classes' range on the host on the CPU, which
+#   neither a graph capture nor a trace can do.
 """k-means (Rodinia analogue, data mining).
 
 Two regions: assignment and centroid update.  The points are read-only; the
@@ -53,7 +55,8 @@ def _assign(points: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 
 def _update(points: torch.Tensor, assign: torch.Tensor, centroids: torch.Tensor,
             k: int) -> torch.Tensor:
-    one_hot = torch.nn.functional.one_hot(assign.long(), k).to(points.dtype)  # (n, k)
+    classes = torch.arange(k, dtype=torch.int64, device=points.device)
+    one_hot = (assign.long()[:, None] == classes).to(points.dtype)          # (n, k)
     sums = torch.matmul(one_hot.t(), points)                                 # (k, d)
     counts = one_hot.sum(dim=0)[:, None]                                     # (k, 1)
     return torch.where(counts > 0, sums / torch.clamp(counts, min=1.0), centroids)

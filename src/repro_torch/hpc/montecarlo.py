@@ -47,9 +47,10 @@ _BASE_KEY = threefry.prng_key(1234)
 _PIECE = 1 << 22
 
 
-def _round(k: int, batch: int, nbins: int, device: str
+def _round(k, batch: int, nbins: int, device: str
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Round ``k``'s (tally int64 (nbins,), scratch rad2 float32 (batch,))."""
+    """Round ``k``'s (tally int64 (nbins,), scratch rad2 float32 (batch,));
+    ``k`` is an int or a 0-d integer tensor on ``device`` (the same bits)."""
     key = threefry.fold_in(_BASE_KEY, k)
     tally = torch.zeros(nbins, dtype=torch.int64, device=device)
     scratch = torch.empty(batch, dtype=torch.float32, device=device)
@@ -62,6 +63,15 @@ def _round(k: int, batch: int, nbins: int, device: str
         tally += torch.bincount(bins, minlength=nbins)
         scratch[lo:lo + n] = tree_sum(xy * xy)
     return tally, scratch
+
+
+def _mc_rounds(ks: torch.Tensor, batch: int, nbins: int, device: str
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each lane's round of ``ks`` (an integer tensor (L,)): tallies (L,
+    nbins) and scratch (L, batch), one lane at a time, each bitwise
+    ``_round`` of that lane's k (the loop over lanes is lax.map's form)."""
+    rounds = [_round(k, batch, nbins, device) for k in ks]
+    return torch.stack([t for t, _ in rounds]), torch.stack([s for _, s in rounds])
 
 
 class MonteCarloApp(IterativeApp):
@@ -143,6 +153,16 @@ class MonteCarloApp(IterativeApp):
     # so only the round generation is batched; accumulation stays host-side.
     supports_batched_step = True
     supports_lane_driver = True
+
+    def batched_kernels(self):
+        from ..core.regions import BatchedKernel
+
+        batch, nbins, device = self.batch, self.nbins, self.device
+        ks = torch.arange(3, dtype=torch.int32, device=device)
+        return (
+            BatchedKernel("mc_rounds", lambda kv: _mc_rounds(kv, batch, nbins, device),
+                          (ks,), {0: 0}),
+        )
 
     def _rounds(self, ks) -> Dict[int, Tuple[np.ndarray, np.ndarray, float]]:
         """Each distinct round of ``ks`` once: k -> (tally, scratch, its

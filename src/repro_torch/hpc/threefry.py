@@ -15,7 +15,8 @@
 #   in the last bit for most, or for 8 %, of the floats.
 """Counter-based threefry-2x32 random numbers, as ``jax.random`` makes them.
 
-Keys are pairs of Python ints (k0, k1), each below 2**32.  Every element of
+Keys are pairs of Python ints (k0, k1), each below 2**32, or pairs of 0-d
+int64 tensors holding such values (a key folded from a tensor).  Every element of
 an output depends only on the key and its flat index, so a caller may draw a
 large array in pieces (``offset``) and get the same bits as one draw.
 """
@@ -79,8 +80,15 @@ def prng_key(seed: int) -> Key:
     return ((seed >> 32) & _MASK, seed & _MASK)
 
 
-def fold_in(key: Key, data: int) -> Key:
-    """``jax.random.fold_in(key, data)``: threefry of the counter (0, data)."""
+def fold_in(key: Key, data) -> Key:
+    """``jax.random.fold_in(key, data)``: threefry of the counter (0, data).
+
+    For an int ``data`` the key is a pair of ints; for a 0-d integer tensor
+    it is a pair of 0-d int64 tensors on that tensor's device (the same
+    bits), which every function here takes in an int key's place."""
+    if isinstance(data, torch.Tensor):
+        d = data.to(torch.int64) & _MASK
+        return threefry2x32(key[0], key[1], torch.zeros_like(d), d)
     x0, x1 = threefry2x32(key[0], key[1], torch.zeros(1, dtype=torch.int64),
                           torch.tensor([int(data) & _MASK], dtype=torch.int64))
     return int(x0[0]), int(x1[0])

@@ -175,12 +175,18 @@ class LMTrainApp(IterativeApp):
         return torch.from_numpy(np.array(params, np.float32)).to(self.device, copy=True)
 
     def _loss(self, vec: torch.Tensor, key: int) -> torch.Tensor:
-        loss, _ = loss_and_aux(self.cfg, self._unflatten(vec), {"tokens": self._batch(key)})
+        return self._loss_on(vec, self._batch(key))
+
+    def _loss_on(self, vec: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        loss, _ = loss_and_aux(self.cfg, self._unflatten(vec), {"tokens": tokens})
         return loss
 
     def _grad(self, params, key: int) -> torch.Tensor:
+        return self._grad_on(params, self._batch(key))
+
+    def _grad_on(self, params, tokens: torch.Tensor) -> torch.Tensor:
         vec = self._vec(params).requires_grad_(True)
-        (g,) = torch.autograd.grad(self._loss(vec, key), vec)
+        (g,) = torch.autograd.grad(self._loss_on(vec, tokens), vec)
         return g
 
     def _eval(self, params) -> float:
@@ -255,12 +261,16 @@ class LMTrainApp(IterativeApp):
         from ..core.regions import BatchedKernel
 
         s = self.init(0)
-        vecs = np.stack([s["params"]] * 2)
-        its = np.zeros(2, np.int32)
+        vecs = self._vec(np.stack([s["params"]] * 2))
+        # each lane's batch comes from its step key, a host int that
+        # run_iteration_batch reads from the lane's state: static
+        # configuration, made outside the kernel and closed over
+        batches = [self._batch(k) for k in (0, 0)]
         return (
             BatchedKernel("vgrad_batch",
-                          lambda vs, ks: torch.stack([self._grad(v, int(k)) for v, k in zip(vs, ks)]),
-                          (vecs, its), {0: 0, 1: 0}),
+                          lambda vs: torch.stack([self._grad_on(v, t)
+                                                  for v, t in zip(vs, batches)]),
+                          (vecs,), {0: 0}),
         )
 
     def run_iteration_batch(self, states):

@@ -21,6 +21,7 @@ import torch
 
 from repro.hpc.suite import ci_app as jax_ci_app
 from repro_torch.core import CrashTester, PersistPlan, RecomputeProfile, get_fault_model
+from repro_torch.core.artifacts import profile_to_payload
 from repro_torch.core.workflow import WorkflowConfig, run_workflow
 from repro_torch.hpc.suite import NOT_PORTED, ci_app, default_cache, get_app
 
@@ -74,18 +75,6 @@ def _entry(camp):
             "crash_iters": [r.iter_idx for r in camp.records]}
 
 
-def _profile_payload(profile: RecomputeProfile) -> dict:
-    """The profile as the JAX package's artifacts.profile_to_payload writes it."""
-    return {
-        "app": str(profile.app_name),
-        "fault": dict(profile.fault_spec),
-        "fractions": {c: float(profile.fractions.get(c, 0.0)) for c in ("S1", "S2", "S3", "S4")},
-        "extra_iters_hist": [[int(i), int(c)] for i, c in profile.extra_iters_hist],
-        "golden_iters": int(profile.golden_iters),
-        "n_records": int(profile.n_records),
-    }
-
-
 def _lane_states(app, name, iters=(0, 3, 7, 19)):
     """Lanes from the app's own trajectory (k differs per lane; cg's lane at
     k 19 takes a residual replacement), each with one float object
@@ -124,7 +113,7 @@ def test_campaign_reproduces_golden(name, engine):
 @pytest.mark.parametrize("name", APPS)
 def test_recompute_profile_reproduces_golden(name):
     camp, fault = _campaign(ci_app(name, device="cpu"))
-    got = _profile_payload(RecomputeProfile.from_campaign(camp, fault=fault))
+    got = profile_to_payload(RecomputeProfile.from_campaign(camp, fault=fault))
     assert got == _goldens()["profiles"][name]
 
 

@@ -39,7 +39,9 @@ def test_no_jax_or_reference_imports_in_port_sources():
                 "core/lane_driver.py", "optim/adamw.py", "optim/schedule.py",
                 "optim/compression.py", "data/pipeline.py", "checkpoint/serialization.py",
                 "checkpoint/manager.py", "launch/train.py", "launch/steps.py",
-                "core/fleetsim.py", "models/moe.py"):
+                "core/fleetsim.py", "models/moe.py", "core/artifacts.py",
+                "analysis/__init__.py", "analysis/fx_walk.py", "analysis/classify.py",
+                "analysis/determinism_lint.py", "analysis/lint.py"):
         assert os.path.join("repro_torch", mod) in names, mod
     for path in files:
         with open(path) as f:
@@ -83,6 +85,38 @@ def test_port_campaigns_of_the_new_apps_leave_jax_unloaded():
         "    app = ci_app(name, device='cpu')\n"
         "    camp = CrashTester(app, PersistPlan.none(), default_cache(app), seed=0).run_campaign(2)\n"
         "    assert len(camp.records) == 2, name\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes', 'repro')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'ml_dtypes.', 'repro.')))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_port_static_workflows_leave_jax_unloaded(tmp_path):
+    """The static analyzer, the static, static+verify and adaptive plan
+    sources, the lint and the artifacts, in a fresh interpreter, load
+    neither jax nor anything of the JAX package."""
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from repro_torch.analysis import analyze_app, lint_app\n"
+        "from repro_torch.core import load_static_plan, load_workflow, save_static_plan, save_workflow\n"
+        "from repro_torch.core.workflow import WorkflowConfig, run_workflow\n"
+        "from repro_torch.hpc.suite import ci_app, default_cache\n"
+        "app = ci_app('sor', device='cpu')\n"
+        "for src in ('static', 'static+verify', 'adaptive'):\n"
+        "    wf = run_workflow(app, WorkflowConfig(n_tests=8, seed=0, cache=default_cache(app),\n"
+        "                                          plan_source=src))\n"
+        "    assert wf.plan.objects == ('u',), (src, wf.plan)\n"
+        f"    save_workflow({str(tmp_path / 'wf.json')!r}, wf)\n"
+        f"    assert load_workflow({str(tmp_path / 'wf.json')!r}).plan_source == src\n"
+        f"save_static_plan({str(tmp_path / 'sp.json')!r}, analyze_app(app))\n"
+        f"assert load_static_plan({str(tmp_path / 'sp.json')!r}).static_plan().persist_objects() == ('u',)\n"
+        "assert all(f == [] for f in lint_app(ci_app('montecarlo', device='cpu')).values())\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes', 'repro')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'ml_dtypes.', 'repro.')))\n"
         "print('LOADED', bad)\n"

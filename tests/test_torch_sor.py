@@ -164,8 +164,13 @@ def test_workflow_plan_equals_jax_plan():
     assert wf.plan.region_freq == jplan.region_freq == {1: 4, 2: 1}
 
 
-def test_non_measured_plan_source_not_ported():
+def test_static_plan_source_runs():
+    """plan_source="static" runs the port's analyzer: no campaigns, the JAX
+    plan (tests/test_static_plan.py's pin)."""
     app = ci_app("sor", device="cpu")
-    with pytest.raises(NotImplementedError, match="module item 9"):
-        run_workflow(app, WorkflowConfig(n_tests=4, cache=default_cache(app), seed=0,
-                                         plan_source="static"))
+    wf = run_workflow(app, WorkflowConfig(n_tests=4, cache=default_cache(app), seed=0,
+                                          plan_source="static"))
+    assert wf.plan_source == "static" and wf.tests_executed == 0
+    assert wf.plan.objects == ("u",)
+    assert wf.plan.region_freq == {1: 4, 2: 1}
+    assert wf.static_plan.uncertain_regions() == []
