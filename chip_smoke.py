@@ -136,6 +136,25 @@ Phases, in order; any failure ends the run with a nonzero exit:
    at grid 8192 with no campaign, deployed as phase 4 deploys the measured
    one, every delta flush through ``delta_snapshot``.
 
+19. the port's examples and deployment tooling (slice 11): (a) the six
+   ``examples/torch_*.py`` each in a subprocess on the card and, at the same
+   time, on the CPU (quickstart; crash_campaign --tests 8 --iters 10;
+   workflow_orchestrate --tests 8; system_efficiency --tests 8 --failures
+   200; serve_recovery --tests 4; train_lm --steps 62 --tests 4): each exits
+   0 without loading jax, each plan equals the CPU run's, the serving
+   example's resumed stream (its arena's tokens) equals an uninterrupted
+   serve of the same flags on the card, and the examples' ``flash_attention``
+   and ``delta_snapshot`` launches are counted; (b) the dry-run's "h100"
+   cell (``launch/dryrun.py`` on a 1 x 1 mesh of the card) at phase 15's
+   trainer (StableLM-2-1.6B's width, 4 layers, batch 8 of 64, grad_accum 2):
+   its roofline terms, then one step of the trainer profiled, which fails
+   the run if its device time is below max(compute_s, memory_s); predicted
+   against measured time and peak memory; (c) run inside phase 15 before
+   its work directory is deleted: ``reshard_restore`` of its newest
+   checkpoint onto the "h100" mesh, every leaf equal to the checkpoint's
+   bytes, and one train step from it equal, bit for bit, to one step from
+   ``launch/train.py``'s own restore of that checkpoint.
+
 Every campaign's phase A goes through the apps' lane drivers; a driver that
 raises and falls back to the host loop fails the run.
 
@@ -196,11 +215,15 @@ from repro_torch.kernels.rglru_scan.ref import rglru_reference  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_reference  # noqa: E402
 from repro_torch.checkpoint import load_pytree, system_config_from_measurement  # noqa: E402
+from repro_torch.checkpoint import CheckpointConfig, CheckpointManager, reshard_restore  # noqa: E402
 from repro_torch.checkpoint.serialization import flatten_tree  # noqa: E402
 from repro_torch.core.efficiency import efficiency_with, efficiency_without  # noqa: E402
 from repro_torch.data import SyntheticLMStream  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
-from repro_torch.launch.steps import make_decode_fn  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import mesh_for_name, release  # noqa: E402
+from repro_torch.launch.steps import make_decode_fn, train_state_specs  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models import init_cache, init_params, moe, prefill  # noqa: E402
 from repro_torch.models.attention import _repeat_kv  # noqa: E402
 
@@ -314,6 +337,32 @@ TRAIN_WORKDIR = os.path.join(ROOT, "build", "chip_smoke_train")
 #: parameters, 216 GB in bf16, over one card's 80 GB
 MOE_ARCH, MOE_PARAMS, MOE_COMPARE_LAYERS = "qwen2-moe-a2.7b", 14_315_587_584, 2
 SCOUT_ARCH, SCOUT_LAYERS, SCOUT_DECODE_STEPS = "llama4-scout-17b-a16e", 2, 8
+#: the port's examples (phase 19) at the CPU tests' sizes; train_lm runs past
+#: its injected failure at step 60 so that it restores from the arena
+EXAMPLES = (
+    ("quickstart", ()),
+    ("crash_campaign", ("--tests", "8", "--iters", "10")),
+    ("workflow_orchestrate", ("--tests", "8")),
+    ("system_efficiency", ("--tests", "8", "--failures", "200")),
+    ("serve_recovery", ("--tests", "4")),
+    ("train_lm", ("--steps", "62", "--tests", "4")),
+)
+#: the lines of each example's report that state its plan (or, for
+#: system_efficiency, the profile it measured)
+EXAMPLE_PLAN_LINES = {
+    "quickstart": r"^knapsack plan .*$",
+    "crash_campaign": r"^persist \(.*\) at loop end",
+    "workflow_orchestrate": r"^(?:critical objects|plan): .*$",
+    "system_efficiency": r"^(?:measuring|rates): .*$",
+    "serve_recovery": r"^(?:critical decode state|plan): .*$",
+    "train_lm": r"^plan: .*$|^\[restore\] source=easycrash step=60$",
+}
+#: the serving example's server flags (examples/torch_serve_recovery.py)
+EXAMPLE_SERVE_FLAGS = ("--arch", "stablelm-1.6b", "--width", "128", "--prompts", "4",
+                       "--prompt-len", "32", "--decode-steps", "48", "--flush-every", "4",
+                       "--persist-mode", "delta")
+#: the dry-run's cell at phase 15's trainer: batch 8 of 64 tokens
+DRYRUN_SHAPE = ShapeConfig("train_phase15", 64, 8, "train")
 
 
 def log(msg: str) -> None:
@@ -1997,6 +2046,8 @@ def _profile_train_steps(cfg, dev: str, steps: int = 2) -> dict:
 
 
 def phase_train(dev: str) -> dict:
+    """Phase 15, and phase 19 (c) on its newest checkpoint before its work
+    directory is deleted (under ``"reshard"``)."""
     cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     shutil.rmtree(TRAIN_WORKDIR, ignore_errors=True)
     check = _FlushCheck()
@@ -2060,6 +2111,7 @@ def phase_train(dev: str) -> dict:
             f"the {run_e['tier']} after rejecting the arena; each equal to the stored bytes; "
             f"every arena image equalled its flush's clone ({len(check.steps)} flushes)")
         peak = torch.cuda.max_memory_allocated()
+        resharded = phase_reshard(cfg, dev, wd)
     finally:
         shutil.rmtree(TRAIN_WORKDIR, ignore_errors=True)
 
@@ -2103,6 +2155,7 @@ def phase_train(dev: str) -> dict:
         "step_profile": profile,
         "peak_device_bytes": peak,
         "seconds": time.perf_counter() - t_start,
+        "reshard": resharded,
     }
     log(f"[train] {out['ms_per_step_baseline']:.2f} ms/step without persistence, "
         f"{ms_b:.2f} with async delta flushes every {TRAIN_FLUSH_EVERY} "
@@ -2435,6 +2488,220 @@ def phase_static(dev: str) -> dict:
     return out
 
 
+# ----------------------------- 19. the examples, the dry-run, elastic restore
+#: runs one example in a fresh interpreter; prints its kernel launches and
+#: the jax modules it loaded
+_EXAMPLE_RUN = """
+import json, runpy, sys
+from repro_torch.kernels.delta_snapshot import dirty_block_mask
+from repro_torch.kernels.flash_attention import flash_attention
+sys.argv = [PATH] + ARGS
+try:
+    runpy.run_path(PATH, run_name='__main__')
+finally:
+    bad = sorted(m for m in sys.modules if m in ('jax', 'repro')
+                 or m.startswith(('jax.', 'jaxlib', 'repro.')))
+    print('LAUNCHES ' + json.dumps({'flash_attention': flash_attention.launches,
+                                    'delta_snapshot': dirty_block_mask.launches,
+                                    'jax_modules': bad}))
+"""
+
+
+def _start_example(name: str, args: tuple, device: str, tmp: str) -> subprocess.Popen:
+    os.makedirs(tmp, exist_ok=True)
+    path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+    code = f"PATH = {path!r}\nARGS = {list(args) + ['--device', device]!r}\n" + _EXAMPLE_RUN
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), TMPDIR=tmp)
+    if device == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+    return subprocess.Popen([sys.executable, "-c", code], cwd=tmp, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def _plan_lines(name: str, out: str) -> list:
+    lines = re.findall(EXAMPLE_PLAN_LINES[name], out, re.M)
+    if not lines:
+        raise AssertionError(f"example {name}: no plan in its report:\n{out[-3000:]}")
+    return lines
+
+
+#: the serving example's prefill attention (B, S, H, D): StableLM-2-1.6B at
+#: width 128 has 4 heads of 32, which the kernel runs padded to D 64
+EXAMPLE_ATTN_SHAPE = (4, 32, 4, 32)
+
+
+def _check_example_attention(dev: str) -> float:
+    """flash_attention at the serving example's shape against its plain
+    version, in float32 and bfloat16 (tests/test_kernels.py's tolerances)."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    err = 0.0
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        q, k, v = _attn_inputs(gen, EXAMPLE_ATTN_SHAPE, EXAMPLE_ATTN_SHAPE[2], dtype)
+        want = attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=True).transpose(1, 2)
+        err = max(err, _check_close(f"flash_attention {dtype} at {EXAMPLE_ATTN_SHAPE}",
+                                    flash_attention(q, k, v).float(), want.float(), tol))
+    return err
+
+
+def _example_serve_stream(dev: str, tmp: str) -> None:
+    """The serving example's resumed stream (its arena's tokens after the
+    last flush) against an uninterrupted serve of the same flags."""
+    arena = NVMArena.reattach(os.path.join(tmp, "repro_torch_example_serve", "serve_arena"))
+    resumed = arena.get("tokens")
+    args = serve.parser().parse_args([*EXAMPLE_SERVE_FLAGS, "--device", dev,
+                                      "--workdir", os.path.join(tmp, "uninterrupted")])
+    whole = serve.run(args)["tokens"]
+    if int(arena.get("__step__")) != 48 or not np.array_equal(resumed, whole):
+        raise AssertionError("the serving example's resumed stream differs from an "
+                             "uninterrupted serve of its flags")
+
+
+def phase_examples(dev: str) -> dict:
+    """Phase 19 (a): the six examples on the card and on the CPU at once."""
+    root = os.path.join(ROOT, "build", "chip_smoke_examples")
+    shutil.rmtree(root, ignore_errors=True)
+    attn_err = _check_example_attention(dev)
+    log(f"[examples] flash_attention at the serving example's shape {EXAMPLE_ATTN_SHAPE} "
+        f"(D 32, run at 64): max |kernel - plain| {attn_err:.3e}")
+    t0 = time.perf_counter()
+    procs = {(name, device): _start_example(name, args, device, os.path.join(root, device, name))
+             for name, args in EXAMPLES for device in (dev, "cpu")}
+    outs = {}
+    try:
+        for key, proc in procs.items():
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"example {key[0]} on {key[1]} exited {proc.returncode}:\n"
+                                     f"{out[-3000:]}")
+            outs[key] = out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    result = {"seconds": time.perf_counter() - t0, "flash_launches": 0, "delta_launches": 0,
+              "flash_max_abs_err": attn_err, "by_example": {}}
+    for name, _ in EXAMPLES:
+        card, cpu = outs[(name, dev)], outs[(name, "cpu")]
+        counts = [json.loads(l[len("LAUNCHES "):]) for l in (card, cpu)
+                  for l in l.splitlines() if l.startswith("LAUNCHES ")]
+        if len(counts) != 2 or counts[0]["jax_modules"] or counts[1]["jax_modules"]:
+            raise AssertionError(f"example {name}: loaded jax or reported no launches {counts}")
+        if _plan_lines(name, card) != _plan_lines(name, cpu):
+            raise AssertionError(f"example {name}: the card's plan {_plan_lines(name, card)} "
+                                 f"differs from the CPU's {_plan_lines(name, cpu)}")
+        result["by_example"][name] = {"plan": _plan_lines(name, card),
+                                      "flash_attention": counts[0]["flash_attention"],
+                                      "delta_snapshot": counts[0]["delta_snapshot"]}
+        result["flash_launches"] += counts[0]["flash_attention"]
+        result["delta_launches"] += counts[0]["delta_snapshot"]
+        log(f"[examples] {name}: exit 0 on {dev} and cpu, plan {_plan_lines(name, card)}; "
+            f"flash_attention {counts[0]['flash_attention']}, delta_snapshot "
+            f"{counts[0]['delta_snapshot']} launches on {dev}")
+    by = result["by_example"]
+    if by["serve_recovery"]["flash_attention"] == 0 or by["serve_recovery"]["delta_snapshot"] == 0:
+        raise AssertionError("the serving example launched no flash_attention or no delta_snapshot")
+    if by["train_lm"]["delta_snapshot"] == 0:
+        raise AssertionError("the training example launched no delta_snapshot")
+    _example_serve_stream(dev, os.path.join(root, dev, "serve_recovery"))
+    log(f"[examples] serve_recovery: the resumed stream equals an uninterrupted serve; "
+        f"six examples in {result['seconds']:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+def phase_dryrun_h100(dev: str) -> dict:
+    """Phase 19 (b): the dry-run's "h100" cell at phase 15's trainer, then one
+    real step of the trainer profiled against its roofline bound."""
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    mesh = mesh_for_name("h100")
+    try:
+        res = dryrun.cell(cfg, DRYRUN_SHAPE, mesh)
+    finally:
+        release()
+    r = res["roofline"]
+    log(f"[dryrun] h100 cell {TRAIN_ARCH} x {TRAIN_LAYERS} layers, batch "
+        f"{DRYRUN_SHAPE.global_batch} x {DRYRUN_SHAPE.seq_len}: flops {r['flops_per_device']:.4e}, "
+        f"bytes {r['bytes_per_device']:.4e}, compute {r['compute_s'] * 1e3:.3f} ms, memory "
+        f"{r['memory_s'] * 1e3:.3f} ms, collective {r['collective_s'] * 1e3:.3f} ms, dominant "
+        f"{r['dominant']}, useful {r['useful_ratio']:.4f}, peak {res['bytes_per_device']:.0f} B; "
+        f"counted step {res['compile_s']} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prof = _profile_train_steps(cfg, dev)
+    peak = torch.cuda.max_memory_allocated()
+    if not prof["device_ms"]:
+        raise AssertionError("the profiler reported no device time: the bound cannot be checked")
+    measured_s = prof["device_ms"] / prof["steps"] / 1e3
+    bound_s = max(r["compute_s"], r["memory_s"])
+    out = {"roofline": r, "predicted_peak_bytes": res["bytes_per_device"],
+           "measured_device_s": measured_s, "bound_s": bound_s,
+           "measured_peak_bytes": peak, "counted_step_s": res["compile_s"]}
+    log(f"[dryrun] measured {measured_s * 1e3:.3f} ms of device time per step against the "
+        f"bound {bound_s * 1e3:.3f} ms (predicted / measured {bound_s / measured_s:.4f}); peak "
+        f"predicted {res['bytes_per_device']:.0f} B / measured {peak} B "
+        f"({res['bytes_per_device'] / peak:.4f})")
+    if measured_s < bound_s:
+        raise AssertionError(f"a step took {measured_s * 1e3:.3f} ms of device time, under its "
+                             f"roofline bound {bound_s * 1e3:.3f} ms: the count is wrong")
+    return out
+
+
+def phase_reshard(cfg, dev: str, wd: str) -> dict:
+    """Phase 19 (c), inside phase 15: the newest checkpoint through
+    reshard_restore onto the "h100" mesh, against launch/train.py's own
+    restore, one train step from each."""
+    t0 = time.perf_counter()
+    ckpt = CheckpointManager(CheckpointConfig(local_dir=os.path.join(wd, "ckpt_local"),
+                                              remote_dir=os.path.join(wd, "ckpt_remote")))
+    step, tree = ckpt.restore()
+    ckpt.close()
+    mesh = mesh_for_name("h100")
+    try:
+        placed = reshard_restore(tree, train_state_specs(cfg, 1), mesh)
+        local = _tree_map(placed, lambda t: t.to_local())
+    finally:
+        release()
+    _check_state_equals("reshard_restore", local, flatten_tree(tree))
+    del tree, placed
+
+    # launch/train.py's own restore of the same checkpoint: the arena is
+    # rejected (--verify-loss-max 0) and no flush or checkpoint is taken
+    restored = {}
+
+    def on_restore(state, got, source):
+        if (source, got) != ("checkpoint", step):
+            raise AssertionError(f"train.py restored from {source} at {got}, not step {step}")
+        restored["state"] = _tree_map(state, torch.clone)
+
+    args = _train_args(wd, "--steps", str(step + 1), "--verify-loss-max", "0",
+                       "--flush-every", "1000000000", "--mtbf", "1e12")
+    train.run(args, cfg, on_restore=on_restore)
+    _, data_cfg, step_fn = train.build(args, cfg)
+    stream = SyntheticLMStream(data_cfg, 0, 1, start_step=step)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(stream)[1].items()}
+    stream.close()
+    a = flatten_state(step_fn(restored.pop("state"), batch)[0])
+    b = flatten_state(step_fn(local, batch)[0])
+    if set(a) != set(b):
+        raise AssertionError(f"the two steps' states differ in leaves {sorted(set(a) ^ set(b))}")
+    for name, x in a.items():
+        y = b[name]
+        if x.dtype != y.dtype or not torch.equal(x.reshape(-1).view(torch.uint8),
+                                                 y.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"{name}: a step from reshard_restore's state differs from a "
+                                 "step from train.py's restore")
+    leaves = len(a)
+    del a, b, local
+    torch.cuda.empty_cache()
+    out = {"step": step, "leaves": leaves, "seconds": time.perf_counter() - t0}
+    log(f"[reshard] checkpoint of step {step} placed on the h100 mesh: every leaf equal to its "
+        f"bytes; one step from it equals one step from train.py's restore, bit for bit "
+        f"({leaves} leaves), {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2516,6 +2783,16 @@ def main() -> int:
     log(f"[slice10] phase 18 {time.perf_counter() - t0:.1f} s; "
         f"the whole run {time.perf_counter() - t_start:.1f} s")
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    examples = phase_examples(dev)
+    log(f"[examples] summary {json.dumps(examples)}")
+    dry = phase_dryrun_h100(dev)
+    log(f"[dryrun] summary {json.dumps(dry)}")
+    log(f"[slice11] phase 19 {time.perf_counter() - t0:.1f} s (its (c) ran in phase 15: "
+        f"{trained['reshard']['seconds']:.1f} s); the whole run "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     log(gpu)
     print(json.dumps({"kernels": [{
         "name": "delta_snapshot",
@@ -2524,7 +2801,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/delta_snapshot/kernel.py:26",
         "launches": launches + served["delta_launches"] + rwkv["delta_launches"]
         + rg["delta_launches"] + sum(r["delta_launches"] for r in suite.values())
-        + trained["delta_launches"] + qwen["delta_launches"] + static["delta_launches"],
+        + trained["delta_launches"] + qwen["delta_launches"] + static["delta_launches"]
+        + examples["delta_launches"],
         "launches_by_path": {"sor_deploy": launches, "serve_stablelm": served["delta_launches"],
                              "serve_rwkv6": rwkv["delta_launches"],
                              "serve_recurrentgemma": rg["delta_launches"],
@@ -2532,7 +2810,8 @@ def main() -> int:
                                 for name, r in suite.items()},
                              "train_stablelm": trained["delta_launches"],
                              "serve_qwen2_moe": qwen["delta_launches"],
-                             "sor_static_deploy": static["delta_launches"]},
+                             "sor_static_deploy": static["delta_launches"],
+                             "examples": examples["delta_launches"]},
         "max_abs_err": max_err,
         "exact": max_err == 0,
         "ms": kern["ms"],
@@ -2546,12 +2825,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
         "launches": served["flash_launches"] + rg["flash_launches"] + qwen["flash_launches"]
-        + scout["flash_launches"],
+        + scout["flash_launches"] + examples["flash_launches"],
         "launches_by_path": {"serve_stablelm": served["flash_launches"],
                              "serve_recurrentgemma": rg["flash_launches"],
                              "serve_qwen2_moe": qwen["flash_launches"],
-                             "llama4_scout_prefill": scout["flash_launches"]},
-        "max_abs_err": flash["max_abs_err"],
+                             "llama4_scout_prefill": scout["flash_launches"],
+                             "examples": examples["flash_launches"]},
+        "max_abs_err": max(flash["max_abs_err"], examples["flash_max_abs_err"]),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"],

@@ -1,5 +1,3 @@
-# Port of repro/data/__init__.py, less host_local_batch_specs (ROADMAP,
-# module item 10).
-from .pipeline import DataConfig, SyntheticLMStream
+from .pipeline import DataConfig, SyntheticLMStream, host_local_batch_specs
 
-__all__ = ["DataConfig", "SyntheticLMStream"]
+__all__ = ["DataConfig", "SyntheticLMStream", "host_local_batch_specs"]

@@ -1,8 +1,8 @@
 # Port copy of repro/data/pipeline.py.  What differs:
 # * The process index and count default to 0 and 1 (one process per card)
 #   instead of jax.process_index() and jax.process_count().
-# * host_local_batch_specs (dry-run stand-ins) is not ported yet (ROADMAP,
-#   module item 10).
+# * host_local_batch_specs gives tensors on torch's "meta" device where
+#   JAX gives ShapeDtypeStructs.
 # Batches stay numpy arrays, exactly JAX's; the trainer moves them to its
 # device.
 """Synthetic LM data pipeline: deterministic, host-sharded, prefetching.
@@ -110,3 +110,18 @@ class SyntheticLMStream:
         self._stop.set()
         self._thread.join(timeout=2)
 
+
+def host_local_batch_specs(cfg: DataConfig) -> Dict[str, "torch.Tensor"]:
+    """Meta-device stand-ins of the *global* batch (dry-run)."""
+    import torch
+
+    s_text = cfg.seq_len - cfg.frontend_tokens
+    out = {
+        "tokens": torch.empty((cfg.global_batch, s_text + 1), dtype=torch.int32, device="meta"),
+    }
+    if cfg.frontend_tokens:
+        out["patches"] = torch.empty(
+            (cfg.global_batch, cfg.frontend_tokens, cfg.d_model), dtype=torch.float32,
+            device="meta",
+        )
+    return out

@@ -1,8 +1,10 @@
 """Public flash-attention op in the model's (B, S, H, D) layout.
 
 A CUDA tensor goes to the hand-written kernels in
-``kernels/csrc/flash_attention.cu`` (D 64, 128 or 256) or the call raises; a
-CPU tensor goes to the plain version in :mod:`.ref`.
+``kernels/csrc/flash_attention.cu`` (D 64, 128 or 256; a smaller D runs as
+64, q, k and v padded with zero columns, which add nothing to a score, and
+the output's extra columns dropped) or the call raises; a CPU tensor goes
+to the plain version in :mod:`.ref`.
 ``flash_attention.launches`` counts kernel launches.
 
 Two routes on the card, chosen by dtype (:func:`kernel_route`):
@@ -60,6 +62,11 @@ def kernel_route(dtype: torch.dtype, d: int, block_k: int) -> dict:
     return {"route": "simt", "q_rows": 64, "kv_tile": kv, "stages": 1, "smem_bytes": smem}
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernel runs a call of head dim ``d`` at."""
+    return max(d, _HEAD_DIMS[0])
+
+
 def _tma_ready(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous at a 16-byte aligned address, as a TMA tensor map
     needs (a view into a larger buffer may start anywhere)."""
@@ -88,22 +95,25 @@ def flash_attention(
         return out.transpose(1, 2)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
-    route = kernel_route(q.dtype, d, bk)
+    dk = kernel_head_dim(d)
+    route = kernel_route(q.dtype, dk, bk)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if dk != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
     q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     out = torch.empty_like(q)
     scale = float(np.float32(d ** -0.5))
     fn = _build.load("flash_attention").flash_attention_fwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, dk,
                  int(causal), int(window or 0), route["kv_tile"], scale, _DTYPE_CODES[q.dtype],
                  stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
-    return out
+    return out[..., :d] if dk != d else out
 
 
 flash_attention.launches = 0

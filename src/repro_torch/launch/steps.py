@@ -9,25 +9,77 @@
 #   as it was) and its metrics as 0-d device tensors: nothing is read back
 #   to the host.  Gradient accumulation is a Python loop over the
 #   microbatches in lax.scan's order, summing in float32 (bfloat16 when the
-#   moments are bfloat16) exactly where JAX casts.
+#   moments are bfloat16) exactly where JAX casts.  Microbatch i is rows
+#   [i * mb, (i + 1) * mb) of the batch, as JAX's reshape to (accum, mb)
+#   gives it, taken as a slice: DTensor cannot split a dim sharded over two
+#   mesh axes by a reshape.  On a DTensor the slice is sharded again over
+#   the batch axes (with_logical).
 # * init_train_state takes a torch.Generator (the params land on its
 #   device).
-# * The abstract shapes (abstract_*), train_state_specs, input_specs and
-#   input_spec_names (sharding and dry runs) are not ported yet (ROADMAP,
-#   module item 10), nor abstract_cache.
-"""Step builders: the train step, prefill and greedy decode."""
+# * Where JAX gives ShapeDtypeStructs (abstract_*, input_specs), the port
+#   gives tensors on torch's "meta" device: init_params and init_cache run
+#   under a FakeTensorMode (jax.eval_shape's counterpart) and each leaf
+#   becomes an empty meta tensor of its shape and dtype.
+"""Step functions shared by the trainer, server, and dry-run.
+
+They are mesh-agnostic; spec trees hold *logical* axis-name tuples
+that the caller resolves against a concrete mesh
+(``repro_torch.distributed.sharding``).
+"""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..models.config import ModelConfig
-from ..models.transformer import decode_step, init_params, loss_and_aux, prefill
-from ..optim.adamw import AdamWConfig, adamw_init, adamw_update, tree_leaves, tree_map
+from ..distributed.sharding import with_logical
+from ..models.config import ModelConfig, ShapeConfig
+from ..models.transformer import (
+    decode_step,
+    init_cache,
+    init_params,
+    loss_and_aux,
+    param_specs,
+    prefill,
+)
+from ..optim.adamw import (
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+    opt_state_specs,
+    tree_leaves,
+    tree_map,
+)
 from ..optim.schedule import cosine_schedule
 
 Tree = Any
+
+
+# ----------------------------------------------------------------- abstract
+def _abstract(build) -> Tree:
+    """``build()``'s tree with every leaf an empty meta tensor of its shape
+    and dtype; nothing is allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        tree = build()
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), tree)
+
+
+def abstract_params(cfg: ModelConfig) -> Tree:
+    return _abstract(lambda: init_params(cfg, torch.Generator()))
+
+
+def abstract_train_state(cfg: ModelConfig) -> Tree:
+    params = abstract_params(cfg)
+    opt = _abstract(lambda: adamw_init(params, cfg.moment_dtype))
+    return {"params": params, "opt": opt,
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def train_state_specs(cfg: ModelConfig, tp: int = 16) -> Tree:
+    pspecs = param_specs(cfg, tp)
+    return {"params": pspecs, "opt": opt_state_specs(pspecs), "step": ()}
 
 
 def init_train_state(cfg: ModelConfig, gen: torch.Generator) -> Tree:
@@ -37,6 +89,37 @@ def init_train_state(cfg: ModelConfig, gen: torch.Generator) -> Tree:
         "opt": adamw_init(params, cfg.moment_dtype),
         "step": torch.zeros((), dtype=torch.int32, device=gen.device),
     }
+
+
+# -------------------------------------------------------------- input specs
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Meta-tensor stand-ins for every model input of this cell.
+
+    Modality frontends are stubs: the audio arch takes EnCodec code ids
+    (ordinary tokens), the VLM takes pre-projected patch embeddings.
+    """
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.mode in ("train", "prefill"):
+        s_text = shape.seq_len - cfg.frontend_tokens
+        extra = 1 if shape.mode == "train" else 0
+        out = {"tokens": meta((shape.global_batch, s_text + extra), torch.int32)}
+        if cfg.frontend_tokens:
+            out["patches"] = meta((shape.global_batch, cfg.frontend_tokens, cfg.d_model),
+                                  torch.float32)
+        return out
+    # decode: one new token + the KV/recurrent cache at seq_len
+    return {"token": meta((shape.global_batch, 1), torch.int32)}
+
+
+def input_spec_names(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Tuple]:
+    if shape.mode in ("train", "prefill"):
+        out = {"tokens": ("batch", None)}
+        if cfg.frontend_tokens:
+            out["patches"] = ("batch", None, None)
+        return out
+    return {"token": ("batch", None)}
 
 
 # ------------------------------------------------------------------- train
@@ -69,13 +152,12 @@ def make_train_step(
     def train_step(state, batch):
         params = state["params"]
         if accum > 1:
-            micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
-                     for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=grad_dt, device=p.device),
-                             params)
+            mb = next(iter(batch.values())).shape[0] // accum
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=grad_dt), params)
             loss_sum = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
             for i in range(accum):
-                loss, g = value_and_grad(params, {k: v[i] for k, v in micro.items()})
+                loss, g = value_and_grad(params, {k: with_logical(v[i * mb:(i + 1) * mb], "batch")
+                                                  for k, v in batch.items()})
                 with torch.no_grad():
                     tree_map(lambda a, b: a.add_(b.to(grad_dt)), grads, g)
                     loss_sum = loss_sum + loss
@@ -129,3 +211,8 @@ def make_decode_fn(cfg: ModelConfig):
         return next_token, new_cache
 
     return serve_step
+
+
+def abstract_cache(cfg: ModelConfig, shape: ShapeConfig) -> Tree:
+    return _abstract(lambda: init_cache(cfg, shape.global_batch, max_len=shape.seq_len,
+                                        device="cpu"))

@@ -1,7 +1,5 @@
-# Port of repro/models/__init__.py: the names the port has (the transformer
-# with its attn, rec and rwkv layer kinds and the MoE layer), plus the
-# recurrent blocks' full-sequence and decode functions; param_specs,
-# cache_specs and moe_specs are not ported yet (ROADMAP, module item 10).
+# Port of repro/models/__init__.py: the same names, plus the MoE layer and
+# the recurrent blocks' full-sequence and decode functions.
 """Model zoo: configs + functional transformer implementation (dense GQA,
 MoE, RG-LRU hybrid and RWKV-6 layer kinds)."""
 from .config import (
@@ -15,23 +13,26 @@ from .config import (
     scaled_down,
     shape_applicable,
 )
-from .moe import moe_apply, moe_params
+from .moe import moe_apply, moe_params, moe_specs
 from .rglru import rglru_decode_step, rglru_full, rglru_init_state
 from .rwkv6 import rwkv_decode_step, rwkv_init_state, rwkv_scan_full
 from .transformer import (
+    cache_specs,
     decode_step,
     forward,
     init_cache,
     init_params,
     loss_and_aux,
+    param_specs,
     prefill,
 )
 
 __all__ = [
     "ModelConfig", "MoEConfig", "RWKVConfig", "RecurrentConfig", "SHAPES",
     "ShapeConfig", "get_shape", "scaled_down", "shape_applicable",
-    "decode_step", "forward", "init_cache", "init_params", "loss_and_aux", "prefill",
-    "moe_apply", "moe_params",
+    "cache_specs", "decode_step", "forward", "init_cache", "init_params",
+    "loss_and_aux", "param_specs", "prefill",
+    "moe_apply", "moe_params", "moe_specs",
     "rglru_decode_step", "rglru_full", "rglru_init_state",
     "rwkv_decode_step", "rwkv_init_state", "rwkv_scan_full",
 ]

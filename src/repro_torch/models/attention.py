@@ -14,8 +14,8 @@
 #   bfloat16 `einsum * scale` followed by a cast to f32.
 # * init_kv_cache takes a device ("cuda" by default, resolved by
 #   device.resolve_device).
-# * with_logical is gone (a no-op on one card); attn_specs and
-#   kv_cache_specs are left out (sharding only).
+# * with_logical returns a plain tensor as it is; it constrains only a
+#   DTensor (the dry-run's meshes).
 """GQA attention: train/prefill (full-sequence) and decode (KV cache) paths.
 
 Supports causal and local-window (RecurrentGemma) masking.  The
@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..distributed.sharding import with_logical
 from .config import ModelConfig
 from .layers import _in_dtype, apply_rope, dtype_of, einsum, matmul, normal_init, rope_angles
 
@@ -45,6 +46,17 @@ def attn_params(cfg: ModelConfig, gen: torch.Generator, n: int) -> Dict:
         "wk": normal_init(gen, (n, d, hkv * dh), s, dt),
         "wv": normal_init(gen, (n, d, hkv * dh), s, dt),
         "wo": normal_init(gen, (n, hq * dh, d), so, dt),
+    }
+
+
+def attn_specs(cfg: ModelConfig, tp: int = 16) -> Dict:
+    kv_sharded = cfg.n_kv_heads % tp == 0
+    kv = "heads" if kv_sharded else None
+    return {
+        "wq": (None, "fsdp", "heads"),
+        "wk": (None, "fsdp", kv),
+        "wv": (None, "fsdp", kv),
+        "wo": (None, "heads", "fsdp"),
     }
 
 
@@ -103,6 +115,8 @@ def attention_full(
     cos, sin = rope_angles(positions, dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = with_logical(q, "batch", None, "heads", None)
+    k = with_logical(k, "batch", None, "kv_heads" if hkv % 8 == 0 else None, None)
 
     if impl == "kernel":
         from ..kernels.flash_attention.ops import flash_attention
@@ -124,7 +138,7 @@ def attention_full(
                          "or 'kernel'")
 
     out = out.reshape(x.shape[0], x.shape[1], hq * dh)
-    return matmul(out, p["wo"])
+    return with_logical(matmul(out, p["wo"]), "batch", "seq", None)
 
 
 def _attention_chunked(
@@ -179,6 +193,14 @@ def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
     }
 
 
+def kv_cache_specs(cfg: ModelConfig, tp: int = 16) -> Dict:
+    if cfg.n_kv_heads % tp == 0:
+        spec = (None, "batch", None, "kv_heads", None)
+    else:
+        spec = (None, "batch", "kv_seq", None, None)
+    return {"k": spec, "v": spec}
+
+
 def attention_decode(
     p: Dict,
     x: torch.Tensor,
@@ -223,4 +245,4 @@ def attention_decode(
     probs = _softmax(scores.float() + bias[None, None, None, :])
     out = einsum("bhqk,bkhd->bqhd", probs.to(x.dtype), vv)
     out = out.reshape(b, 1, hq * dh)
-    return matmul(out, p["wo"]), cache_k, cache_v
+    return with_logical(matmul(out, p["wo"]), "batch", None, None), cache_k, cache_v

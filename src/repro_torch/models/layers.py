@@ -16,8 +16,8 @@
 # * rope_angles computes the frequencies and cos/sin in float64 and rounds
 #   them to f32 (XLA compiles 1/theta**e as theta**-e, and its f32 pow, cos
 #   and sin are within one ulp of the correctly rounded values).
-# * with_logical (sharding annotations) is gone: a no-op on one card.
-# * mlp_specs is left out (sharding only).
+# * with_logical returns a plain tensor as it is; it constrains only a
+#   DTensor (the dry-run's meshes).
 """Shared layers: norms, rotary embedding, MLPs, initializers."""
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..distributed.sharding import with_logical
 from .config import ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -137,9 +138,18 @@ def mlp_params(cfg: ModelConfig, gen: torch.Generator, n: int,
     }
 
 
+def mlp_specs() -> Dict:
+    return {
+        "w_gate": (None, "fsdp", "ff"),
+        "w_up": (None, "fsdp", "ff"),
+        "w_down": (None, "ff", "fsdp"),
+    }
+
+
 def mlp_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d); p holds one layer's weights."""
     act = activation_fn(cfg.activation)
     h = matmul(x, p["w_gate"])
     u = matmul(x, p["w_up"])
-    return matmul(act(h) * u, p["w_down"])
+    h = with_logical(act(h) * u, "batch", None, "ff")
+    return with_logical(matmul(h, p["w_down"]), "batch", "seq", None)

@@ -16,8 +16,8 @@
 #   (E, T, f), where torch.einsum("td,edf->tef") may copy every expert's
 #   weights into a fresh layout.
 # * act(g) * u goes op by op (layers.activation_fn), as in mlp_apply.
-# * with_logical is gone (a no-op on one card); moe_specs is left out
-#   (sharding; ROADMAP, module item 10).
+# * with_logical returns a plain tensor as it is; it constrains only a
+#   DTensor (the dry-run's meshes), here the layer's output only.
 """Mixture-of-Experts FFN: top-k router + capacity-buffered sort dispatch.
 
 Two implementations sharing the router:
@@ -41,8 +41,18 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..distributed.sharding import with_logical
 from .config import ModelConfig
-from .layers import activation_fn, dtype_of, einsum, matmul, mlp_apply, mlp_params, normal_init
+from .layers import (
+    activation_fn,
+    dtype_of,
+    einsum,
+    matmul,
+    mlp_apply,
+    mlp_params,
+    mlp_specs,
+    normal_init,
+)
 
 
 def moe_params(cfg: ModelConfig, gen: torch.Generator, n: int) -> Dict:
@@ -60,6 +70,22 @@ def moe_params(cfg: ModelConfig, gen: torch.Generator, n: int) -> Dict:
     }
     if m.d_ff_shared:
         p["shared"] = mlp_params(cfg, gen, n, d_ff=m.d_ff_shared)
+    return p
+
+
+def moe_specs(cfg: ModelConfig) -> Dict:
+    m = cfg.moe
+    ep = m.expert_parallel
+    e_ax = "experts" if ep else None
+    f_ax = None if ep else "expert_ff"
+    p = {
+        "router": (None, "fsdp", None),
+        "w_gate": (None, e_ax, "fsdp", f_ax),
+        "w_up": (None, e_ax, "fsdp", f_ax),
+        "w_down": (None, e_ax, f_ax, "fsdp"),
+    }
+    if m.d_ff_shared:
+        p["shared"] = mlp_specs()
     return p
 
 
@@ -170,4 +196,4 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, decode: bool = False
 
     if m.d_ff_shared:
         y = y + mlp_apply(p["shared"], x, cfg).reshape(T, d)
-    return y.reshape(b, s, d), aux
+    return with_logical(y.reshape(b, s, d), "batch", "seq", None), aux

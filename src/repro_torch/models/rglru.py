@@ -13,8 +13,8 @@
 # * rglru_full(..., return_state=True) also returns the decode cache's
 #   leaves (h's last step, the pre-conv tail) from the values it computes,
 #   which the JAX prefill recomputes (transformer._rec_state_after).
-# * with_logical is gone (a no-op on one card); rglru_specs and
-#   rglru_state_specs are left out (sharding only).
+# * with_logical returns a plain tensor as it is; it constrains only a
+#   DTensor (the dry-run's meshes).
 """RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427).
 
 Real-Gated Linear Recurrent Unit:
@@ -34,6 +34,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..distributed.sharding import with_logical
 from .config import ModelConfig
 from .layers import activation_fn, dtype_of, matmul, normal_init
 
@@ -55,6 +56,18 @@ def rglru_params(cfg: ModelConfig, gen: torch.Generator, n: int) -> Dict:
         # Lambda init so a = sigmoid(L) in ~(0.9, 0.999)
         "lamb": normal_init(gen, (n, dr), 0.5, torch.float32) + 4.0,
         "w_out": normal_init(gen, (n, dr, d), dr ** -0.5, dt),
+    }
+
+
+def rglru_specs() -> Dict:
+    return {
+        "w_in_x": (None, "fsdp", "rnn"),
+        "w_in_g": (None, "fsdp", "rnn"),
+        "conv": (None, None, "rnn"),
+        "w_gate_a": (None, "fsdp", "rnn"),
+        "w_gate_x": (None, "fsdp", "rnn"),
+        "lamb": (None, "rnn"),
+        "w_out": (None, "rnn", "fsdp"),
     }
 
 
@@ -104,10 +117,12 @@ def rglru_full(p: Dict, x: torch.Tensor, cfg: ModelConfig, impl: str = "referenc
     cw = cfg.rec.conv_width
     xr = matmul(x, p["w_in_x"])
     g = matmul(x, p["w_in_g"])
+    xr = with_logical(xr, "batch", None, "rnn")
     prefix = torch.zeros((b, cw - 1, xr.shape[-1]), dtype=xr.dtype, device=xr.device)
     a, gx = _gates(p, _causal_conv(xr, p["conv"], prefix))
     h = _scan(a, gx, impl)
     out = matmul(h.to(x.dtype) * activation_fn("gelu")(g), p["w_out"])
+    out = with_logical(out, "batch", "seq", None)
     return (out, {"h": h[:, -1], "conv": xr[:, -(cw - 1):]}) if return_state else out
 
 
@@ -117,6 +132,10 @@ def rglru_init_state(cfg: ModelConfig, n_layers: int, batch: int, device) -> Dic
         "h": torch.zeros((n_layers, batch, dr), dtype=torch.float32, device=device),
         "conv": torch.zeros((n_layers, batch, cw - 1, dr), dtype=dtype_of(cfg), device=device),
     }
+
+
+def rglru_state_specs() -> Dict:
+    return {"h": (None, "batch", "rnn"), "conv": (None, "batch", None, "rnn")}
 
 
 def rglru_decode_step(

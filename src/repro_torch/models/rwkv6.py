@@ -17,8 +17,8 @@
 # * rwkv_scan_full(..., return_state=True) also returns the decode cache's
 #   leaves (S from the scan, or the state the chunk loop carries out, and
 #   x_last), which the JAX prefill recomputes (transformer._rwkv_state_after).
-# * with_logical is gone (a no-op on one card); rwkv_specs and
-#   rwkv_state_specs are left out (sharding only).
+# * with_logical returns a plain tensor as it is; it constrains only a
+#   DTensor (the dry-run's meshes).
 """RWKV-6 "Finch" time-mix block (arXiv:2404.05892), attention-free.
 
 State: one matrix S in R^{dh x dh} per head.  Recurrence per token t:
@@ -41,6 +41,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..distributed.sharding import with_logical
 from .config import ModelConfig
 from .layers import activation_fn, dtype_of, matmul, normal_init, rms_norm
 
@@ -71,6 +72,24 @@ def rwkv_params(cfg: ModelConfig, gen: torch.Generator, n: int) -> Dict:
         + normal_init(gen, (n, d), 0.3, f32),
         "bonus_u": normal_init(gen, (n, H, dh), 0.3, f32),
         "ln_x": torch.zeros((n, d), dtype=dt, device=gen.device),  # per-head group-norm gain
+    }
+
+
+def rwkv_specs() -> Dict:
+    return {
+        "mix_lerp": (None, None, None),
+        "w_r": (None, "fsdp", "heads"),
+        "w_k": (None, "fsdp", "heads"),
+        "w_v": (None, "fsdp", "heads"),
+        "w_g": (None, "fsdp", "heads"),
+        "w_o": (None, "heads", "fsdp"),
+        "wd_a": (None, "fsdp", None),
+        "wd_b": (None, None, "heads"),
+        "decay_base": (None, "heads"),
+        # (L, H, dh): H=40 does not divide a 16-way model axis — replicate
+        # (tiny tensor; the big per-head state shards via the d_model dim)
+        "bonus_u": (None, None, None),
+        "ln_x": (None, None),
     }
 
 
@@ -140,7 +159,7 @@ def rwkv_scan_full(
     y = y.reshape(b, s, d).to(x.dtype)
     y = rms_norm(y, p["ln_x"], cfg.norm_eps)     # group-norm stand-in
     y = y * activation_fn("silu")(g)
-    out = matmul(y, p["w_o"])
+    out = with_logical(matmul(y, p["w_o"]), "batch", "seq", None)
     return (out, {"S": S, "x_last": x[:, -1]}) if return_state else out
 
 
@@ -223,6 +242,13 @@ def rwkv_init_state(cfg: ModelConfig, n_layers: int, batch: int, device) -> Dict
         "S": torch.zeros((n_layers, batch, H, dh, dh), dtype=torch.float32, device=device),
         "x_last": torch.zeros((n_layers, batch, cfg.d_model), dtype=dtype_of(cfg),
                               device=device),
+    }
+
+
+def rwkv_state_specs() -> Dict:
+    return {
+        "S": (None, "batch", "heads", None, None),
+        "x_last": (None, "batch", None),
     }
 
 

@@ -1,8 +1,6 @@
 # Port of repro/models/transformer.py: the dense and MoE paths and the
 # layer kinds "rec" (RG-LRU, RecurrentGemma) and "rwkv" (RWKV-6).  What
 # differs:
-# * param_specs and cache_specs are left out (sharding; ROADMAP, module
-#   item 10).
 # * lax.scan over stacked layer parameters is a Python loop over index i of
 #   the same stacked (n, ...) tensors, so a JAX parameter tree converts leaf
 #   for leaf (convert.params_from_jax).  remat has no counterpart: autograd
@@ -26,7 +24,11 @@
 # * The second norm of a layer reads the residual sum after the mixer
 #   unrounded, in f32 (_mlp_half), as XLA's compiled scan body does; the
 #   MoE layer (moe_apply) reads the same normed input as the MLP.
-# * with_logical is gone (a no-op on one card).
+# * with_logical returns a plain tensor as it is; it constrains only a
+#   DTensor (the dry-run's meshes).  loss_and_aux gathers the gold logits
+#   from logits replicated over the vocab: DTensor's gather on a
+#   vocab-sharded dim gives a masked partial sum that it then fails to
+#   reduce-scatter (torch 2.13).
 """LM assembly: embed -> layer loop -> logits.
 
 Per layer kind:
@@ -38,8 +40,9 @@ Per layer kind:
 
 each as RMSNorm -> mixer -> residual -> RMSNorm -> MLP -> residual.
 
-Entry points: ``init_params`` / ``forward`` / ``loss_and_aux`` / ``prefill`` /
-``init_cache`` / ``decode_step``.
+Entry points: ``init_params`` / ``param_specs`` / ``forward`` /
+``loss_and_aux`` / ``prefill`` / ``init_cache`` / ``cache_specs`` /
+``decode_step``.
 """
 from __future__ import annotations
 
@@ -48,12 +51,15 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..distributed.sharding import with_logical
 from .attention import (
     _split_heads,
     attention_decode,
     attention_full,
     attn_params,
+    attn_specs,
     init_kv_cache,
+    kv_cache_specs,
 )
 from .config import ModelConfig
 from .layers import (
@@ -62,22 +68,27 @@ from .layers import (
     matmul,
     mlp_apply,
     mlp_params,
+    mlp_specs,
     normal_init,
     rms_norm,
     rope_angles,
 )
-from .moe import moe_apply, moe_params
+from .moe import moe_apply, moe_params, moe_specs
 from .rglru import (
     rglru_decode_step,
     rglru_full,
     rglru_init_state,
     rglru_params,
+    rglru_specs,
+    rglru_state_specs,
 )
 from .rwkv6 import (
     rwkv_decode_step,
     rwkv_init_state,
     rwkv_params,
     rwkv_scan_full,
+    rwkv_specs,
+    rwkv_state_specs,
 )
 
 Params = Dict[str, Any]
@@ -116,6 +127,21 @@ def _sublayer_params(cfg: ModelConfig, kind: str, gen: torch.Generator, n: int) 
     return p
 
 
+def _sublayer_specs(cfg: ModelConfig, kind: str, tp: int) -> Dict:
+    p: Dict[str, Any] = {"norm1": (None, None), "norm2": (None, None)}
+    if kind == "attn":
+        p["attn"] = attn_specs(cfg, tp)
+    elif kind == "rec":
+        p["rec"] = rglru_specs()
+    elif kind == "rwkv":
+        p["rwkv"] = rwkv_specs()
+    if _layer_uses_moe(cfg, kind):
+        p["moe"] = moe_specs(cfg)
+    else:
+        p["mlp"] = mlp_specs()
+    return p
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random weights on ``gen``'s device, in the JAX package's tree layout."""
     dt = dtype_of(cfg)
@@ -131,6 +157,21 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
             for pi, kind in enumerate(pattern)
         }
     return params
+
+
+def param_specs(cfg: ModelConfig, tp: int = 16) -> Params:
+    specs: Params = {
+        "embed": ("vocab", "fsdp"),
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ("fsdp", "vocab")
+    for gi, (pattern, rep) in enumerate(cfg.groups):
+        specs[f"group{gi}"] = {
+            f"pos{pi}": _sublayer_specs(cfg, kind, tp)
+            for pi, kind in enumerate(pattern)
+        }
+    return specs
 
 
 # ------------------------------------------------------------------ forward
@@ -201,14 +242,16 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = _take_rows(params["embed"], tokens)
     if patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
-    return x
+    return with_logical(x, "batch", "seq", None)
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return matmul(x, params["embed"].t())
-    return matmul(x, params["unembed"])
+        logits = matmul(x, params["embed"].t())
+    else:
+        logits = matmul(x, params["unembed"])
+    return with_logical(logits, "batch", None, "vocab")
 
 
 def forward(
@@ -235,7 +278,7 @@ def loss_and_aux(
     labels = tokens[:, 1:]
     logits, aux = forward(cfg, params, inputs, patches, impl)
     # predictions for text labels sit at the last (S_text - 1) positions
-    logits = logits[:, -labels.shape[1]:, :].float()
+    logits = with_logical(logits[:, -labels.shape[1]:, :].float(), "batch", None, None)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = (logz - gold).mean()
@@ -263,13 +306,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dic
     return cache
 
 
+def cache_specs(cfg: ModelConfig, tp: int = 16) -> Dict:
+    specs: Dict[str, Any] = {"t": ()}
+    for gi, (pattern, rep) in enumerate(cfg.groups):
+        g: Dict[str, Any] = {}
+        for pi, kind in enumerate(pattern):
+            if kind == "attn":
+                g[f"pos{pi}"] = kv_cache_specs(cfg, tp)
+            elif kind == "rec":
+                g[f"pos{pi}"] = rglru_state_specs()
+            elif kind == "rwkv":
+                g[f"pos{pi}"] = rwkv_state_specs()
+        specs[f"group{gi}"] = g
+    return specs
+
+
 def decode_step(
     cfg: ModelConfig, params: Params, token: torch.Tensor, cache: Dict,
 ) -> Tuple[torch.Tensor, Dict]:
     """token: (B, 1) int.  Returns (logits (B, 1, V), the cache updated in
     place (the new token's K/V, the recurrent states) and ``t`` advanced)."""
     t = cache["t"]
-    x = _take_rows(params["embed"], token)
+    x = with_logical(_take_rows(params["embed"], token), "batch", None, None)
     new_cache: Dict[str, Any] = {"t": t + 1}
     for gi, (pattern, rep) in enumerate(cfg.groups):
         gparams = params[f"group{gi}"]

@@ -10,7 +10,6 @@
 #   into a fused multiply-add, so on the CPU each op rounds as JAX's does.
 #   On the CPU the float32 square root goes through float64 (torch's CPU
 #   float32 sqrt is not correctly rounded; XLA's and CUDA's are).
-# * opt_state_specs (sharding) is not ported yet (ROADMAP, module item 10).
 """AdamW built from scratch, over dict trees of tensors.
 
 The moment dtype is a per-config knob (the 340B cell needs bf16 moments).
@@ -64,6 +63,15 @@ def adamw_init(params: Params, moment_dtype: str = "float32") -> Dict:
     }
 
 
+def opt_state_specs(param_spec_tree: Any) -> Dict:
+    """Moments inherit their parameter's sharding; count is replicated."""
+    return {
+        "mu": param_spec_tree,
+        "nu": param_spec_tree,
+        "count": (),
+    }
+
+
 def _global_norm(tree: Params) -> torch.Tensor:
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     return _sqrt(torch.sum(torch.stack(leaves)))
@@ -106,3 +114,7 @@ def adamw_update(
         {"mu": pick(1), "nu": pick(2), "count": count},
         {"grad_norm": gnorm},
     )
+
+
+class OptState(dict):
+    """Marker type (opt state is a plain dict tree)."""

@@ -212,7 +212,7 @@ def test_flash_kernel_takes_a_misaligned_view():
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():
-    q = torch.zeros(1, 128, 2, 32, device="cuda")
+    q = torch.zeros(1, 128, 2, 96, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, q, q)
     q = torch.zeros(1, 128, 2, 64, device="cuda", dtype=torch.float16)
@@ -293,6 +293,23 @@ def test_rwkv6_kernel_final_state(b, h, t, d, dtype):
     assert torch.equal(y, rwkv6_scan(r, k, v, w, u, block_t=t))
     y2, S2 = rwkv6_scan(r, k, v, w, u, block_t=t, return_state=True)
     assert torch.equal(y, y2) and torch.equal(S, S2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32])
+def test_flash_kernel_pads_a_small_head_dim(dtype, d):
+    """A head dim under 64 runs as 64 with zero columns: the plain
+    version's result, within the route's tolerance."""
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v = (torch.randn(2, 128, 4, d, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1 and got.shape == q.shape
+    want = attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               causal=True).transpose(1, 2)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 def test_rwkv6_kernel_chunking_independence():
@@ -586,3 +603,31 @@ def test_trainer_on_device_async_delta_flushes_and_restores_the_image(tmp_path):
         assert v.tobytes() == landed[6]["params/" + k].tobytes(), k
     assert stats["final_step"] == 9 and sorted(landed) == [3, 6, 9]
     assert dirty_block_mask.launches - before == leaves  # the flush at 9
+
+
+def test_h100_mesh_reshard_restore_and_dryrun_cell(tmp_path):
+    """The "h100" mesh (the card as 1 x 1, a one-rank NCCL group):
+    reshard_restore places each leaf whole on the card, and the dry-run's
+    cell runs and counts a reduced train step there."""
+    import dataclasses
+
+    from repro_torch.checkpoint import reshard_restore
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_for_name, release
+    from repro_torch.models import scaled_down
+    from repro_torch.models.config import ShapeConfig
+
+    tree = {"w": np.arange(64, dtype=np.float32).reshape(8, 8), "step": np.array(3, np.int32)}
+    try:
+        mesh = mesh_for_name("h100")
+        placed = reshard_restore(tree, {"w": ("fsdp", "ff"), "step": ()}, mesh)
+        w = placed["w"].to_local()
+        assert w.is_cuda and np.array_equal(w.cpu().numpy(), tree["w"])
+        cfg = dataclasses.replace(scaled_down(get_arch("stablelm-1.6b"), width=128), grad_accum=2)
+        res = dryrun.cell(cfg, ShapeConfig("t", 32, 4, "train"), mesh)
+    finally:
+        release()
+    r = res["roofline"]
+    assert res["n_devices"] == 1 and r["flops_per_device"] > 0 and r["collective_bytes"] == 0
+    assert 0 < res["bytes_per_device"] < 80e9 and res["fits_80gb_hbm"]

@@ -140,6 +140,9 @@ def test_route_rejects_what_no_kernel_takes():
         ops.kernel_route(torch.float16, 64, 128)
     with pytest.raises(ValueError, match="head dims"):
         ops.kernel_route(torch.bfloat16, 96, 128)
+    # a head dim under 64 runs at 64 (zero columns); 96 has no route
+    assert [ops.kernel_head_dim(d) for d in (16, 32, 64, 96, 128, 256)] == \
+        [64, 64, 64, 96, 128, 256]
 
 
 def test_tma_operands_are_contiguous_and_16_byte_aligned():

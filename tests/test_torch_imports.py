@@ -27,6 +27,9 @@ def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    examples = os.path.join(ROOT, "examples")
+    files += [os.path.join(examples, n) for n in sorted(os.listdir(examples))
+              if n.startswith("torch_") and n.endswith(".py")]
     return files
 
 
@@ -41,8 +44,13 @@ def test_no_jax_or_reference_imports_in_port_sources():
                 "checkpoint/manager.py", "launch/train.py", "launch/steps.py",
                 "core/fleetsim.py", "models/moe.py", "core/artifacts.py",
                 "analysis/__init__.py", "analysis/fx_walk.py", "analysis/classify.py",
-                "analysis/determinism_lint.py", "analysis/lint.py"):
+                "analysis/determinism_lint.py", "analysis/lint.py",
+                "distributed/sharding.py", "launch/mesh.py", "checkpoint/reshard.py",
+                "launch/op_cost.py", "launch/analysis.py", "launch/dryrun.py"):
         assert os.path.join("repro_torch", mod) in names, mod
+    for name in ("quickstart", "crash_campaign", "workflow_orchestrate", "system_efficiency",
+                 "train_lm", "serve_recovery"):
+        assert os.path.join("..", "examples", f"torch_{name}.py") in names, name
     for path in files:
         with open(path) as f:
             hits = FORBIDDEN.findall(f.read())
