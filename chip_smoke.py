@@ -155,6 +155,17 @@ Phases, in order; any failure ends the run with a nonzero exit:
    bytes, and one train step from it equal, bit for bit, to one step from
    ``launch/train.py``'s own restore of that checkpoint.
 
+20. the dry-run's kernel cells (slice 12): ``dryrun.cell(...,
+   impl="kernel")`` on the "h100" mesh at the served cells' prefill shape (4
+   prompts of 1024 tokens) for RWKV6-3B cut to 4 layers, RecurrentGemma-9B
+   cut to one (rec, rec, attn) repetition and Qwen1.5-MoE-A2.7B cut to 2
+   layers, all at full width: each cell launches ``rwkv6_scan``,
+   ``rglru_scan`` and ``flash_attention`` (as ``torch.library`` custom ops
+   on DTensors) exactly once per layer of their kind; its roofline bound
+   must not exceed the device time of a profiled prefill of the same
+   configuration on plain tensors; and each op called on 1 x 1 DTensors
+   gives the direct call's bits.
+
 Every campaign's phase A goes through the apps' lane drivers; a driver that
 raises and falls back to the host loop fails the run.
 
@@ -363,6 +374,15 @@ EXAMPLE_SERVE_FLAGS = ("--arch", "stablelm-1.6b", "--width", "128", "--prompts",
                        "--persist-mode", "delta")
 #: the dry-run's cell at phase 15's trainer: batch 8 of 64 tokens
 DRYRUN_SHAPE = ShapeConfig("train_phase15", 64, 8, "train")
+#: the dry-run's kernel cells (phase 20), at the served cells' prefill shape
+#: (4 prompts of 1024 tokens): each arch at full width, its first layer
+#: group cut to this many repetitions
+DRYRUN_PREFILL = ShapeConfig("prefill_4x1024", SERVE_PROMPT_LEN, SERVE_PROMPTS, "prefill")
+DRYRUN_KERNEL_CELLS = (("dryrun-h100-rwkv6x4", RWKV_ARCH, 4),
+                       ("dryrun-h100-rgx3", RG_ARCH, 1),
+                       ("dryrun-h100-qwen2-moex2", MOE_ARCH, 2))
+#: the layer kind each model kernel runs once per layer of
+KERNEL_KIND = {"rwkv6_scan": "rwkv", "rglru_scan": "rec", "flash_attention": "attn"}
 
 
 def log(msg: str) -> None:
@@ -2648,6 +2668,125 @@ def phase_dryrun_h100(dev: str) -> dict:
     return out
 
 
+# -------------------------------------------- 20. the dry-run's kernel cells
+def _kernel_launches() -> dict:
+    return {"rwkv6_scan": rwkv6_scan.launches, "rglru_scan": rglru_scan.launches,
+            "flash_attention": flash_attention.launches}
+
+
+def _zero_kernel_launches() -> None:
+    rwkv6_scan.launches = rglru_scan.launches = flash_attention.launches = 0
+
+
+def _cut_groups(cfg, reps: int):
+    """``cfg`` with its first layer group cut to ``reps`` repetitions and the
+    other groups dropped."""
+    pattern = cfg.groups[0][0]
+    return dataclasses.replace(cfg, n_layers=len(pattern) * reps, layer_groups=((pattern, reps),))
+
+
+def _ops_on_dtensors(dev: str, mesh) -> dict:
+    """Each model kernel's op on seeded inputs at the cells' shapes, called
+    on 1 x 1 DTensors of the card and directly: the same bits."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def both(fn, *xs):
+        direct = fn(*xs)
+        dts = [DTensor.from_local(x, mesh, [Replicate(), Replicate()], run_check=False)
+               for x in xs]
+        via = fn(*dts)
+        direct, via = ((t,) if isinstance(t, torch.Tensor) else t for t in (direct, via))
+        return all(torch.equal(a, b.to_local()) for a, b in zip(direct, via))
+
+    r, k, v = (torch.randn(RWKV_SHAPE, generator=gen, device=dev) for _ in range(3))
+    w = torch.rand(RWKV_SHAPE, generator=gen, device=dev) * 0.5 + 0.5
+    u = torch.randn(RWKV_SHAPE[2:], generator=gen, device=dev)
+    a = torch.rand(RGLRU_SHAPE, generator=gen, device=dev)
+    x = torch.randn(RGLRU_SHAPE, generator=gen, device=dev)
+    out = {"rwkv6_scan": both(lambda *t: rwkv6_scan(*t, return_state=True), r, k, v, w, u),
+           "rglru_scan": both(rglru_scan, a, x)}
+    for name, shape, window in (("flash_attention_rg", RG_ATTN_SHAPE, 2048),
+                                ("flash_attention_qwen", QWEN_ATTN_SHAPE, None)):
+        q, kk, vv = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+                     for _ in range(3))
+        out[name] = both(lambda *t: flash_attention(*t, window=window), q, kk, vv)
+    return out
+
+
+def phase_dryrun_kernels(dev: str) -> dict:
+    """Phase 20: the dry-run's cells with impl="kernel" on the "h100" mesh
+    (a 1 x 1 DTensor mesh of the card), at the served cells' prefill shape,
+    for RWKV6-3B cut to 4 layers, RecurrentGemma-9B to one (rec, rec, attn)
+    repetition and Qwen1.5-MoE-A2.7B to 2 layers, all at full width.  Each
+    cell must launch every model kernel once per layer of its kind; its
+    roofline bound must not exceed the device time of a profiled prefill
+    of the same configuration on plain tensors (random bf16 weights); and
+    each op on 1 x 1 DTensors must give the direct call's bits."""
+    t0 = time.perf_counter()
+    gpu = gpu_name_and_power()
+    mesh = mesh_for_name("h100")
+    cells, by_path = {}, {k: 0 for k in KERNEL_KIND}
+    try:
+        for label, arch, reps in DRYRUN_KERNEL_CELLS:
+            cfg = _cut_groups(get_arch(arch), reps)
+            want = {k: sum(pat.count(kind) * rep for pat, rep in cfg.groups)
+                    for k, kind in KERNEL_KIND.items()}
+            _zero_kernel_launches()
+            res = dryrun.cell(cfg, DRYRUN_PREFILL, mesh, impl="kernel")
+            launches = _kernel_launches()
+            if launches != want:
+                raise AssertionError(f"{label}: the cell launched {launches}, expected once "
+                                     f"per layer of each kernel's kind: {want}")
+            for k, n in launches.items():
+                by_path[k] += n
+            r = res["roofline"]
+            bound_s = max(r["compute_s"], r["memory_s"])
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+            tokens = torch.randint(0, cfg.vocab, (SERVE_PROMPTS, SERVE_PROMPT_LEN),
+                                   generator=torch.Generator(device=dev).manual_seed(1),
+                                   device=dev, dtype=torch.int32)
+
+            def one():
+                prefill(cfg, params, tokens, impl="kernel")
+
+            one()  # warm-up
+            prof = _kernel_profile(one, 1)
+            del params
+            torch.cuda.empty_cache()
+            if not prof["device_ms"]:
+                raise AssertionError(f"{label}: the profiler reported no device time")
+            measured_s = prof["device_ms"] / 1e3
+            cells[label] = {"arch": arch, "layers": cfg.n_layers, "launches": launches,
+                            "flops": r["flops_per_device"], "bytes": r["bytes_per_device"],
+                            "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                            "bound_s": bound_s, "measured_device_s": measured_s,
+                            "bound_over_measured": bound_s / measured_s,
+                            "peak_bytes": res["bytes_per_device"],
+                            "counted_step_s": res["compile_s"]}
+            log(f"[dryrun20] {label} ({gpu}): launches {launches}; flops "
+                f"{r['flops_per_device']:.4e}, bytes {r['bytes_per_device']:.4e}, compute "
+                f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms; bound "
+                f"{bound_s * 1e3:.3f} ms against {measured_s * 1e3:.3f} ms of device time in a "
+                f"profiled prefill ({bound_s / measured_s:.4f}); wall of the prefill "
+                f"{prof['wall_ms']:.1f} ms; peak {res['bytes_per_device']:.0f} B")
+            if measured_s < bound_s:
+                raise AssertionError(f"{label}: a prefill took {measured_s * 1e3:.3f} ms of "
+                                     f"device time, under its roofline bound "
+                                     f"{bound_s * 1e3:.3f} ms: the count is wrong")
+        bits = _ops_on_dtensors(dev, mesh)
+    finally:
+        release()
+    if not all(bits.values()):
+        raise AssertionError(f"an op on 1 x 1 DTensors differs from its direct call: {bits}")
+    seconds = time.perf_counter() - t0
+    log(f"[dryrun20] ({gpu}) each op on 1 x 1 DTensors gives the direct call's bits "
+        f"({', '.join(bits)}); phase 20 {seconds:.1f} s")
+    return {"cells": cells, "launches_by_kernel": by_path, "dtensor_bits": bits,
+            "seconds": seconds}
+
+
 def phase_reshard(cfg, dev: str, wd: str) -> dict:
     """Phase 19 (c), inside phase 15: the newest checkpoint through
     reshard_restore onto the "h100" mesh, against launch/train.py's own
@@ -2793,6 +2932,14 @@ def main() -> int:
         f"{trained['reshard']['seconds']:.1f} s); the whole run "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    dry20 = phase_dryrun_kernels(dev)
+    log(f"[dryrun20] summary {json.dumps(dry20)}")
+    log(f"[slice12] phase 20 {time.perf_counter() - t0:.1f} s; the whole run "
+        f"{time.perf_counter() - t_start:.1f} s")
+    d20 = dry20["launches_by_kernel"]
+
     log(gpu)
     print(json.dumps({"kernels": [{
         "name": "delta_snapshot",
@@ -2825,12 +2972,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
         "launches": served["flash_launches"] + rg["flash_launches"] + qwen["flash_launches"]
-        + scout["flash_launches"] + examples["flash_launches"],
+        + scout["flash_launches"] + examples["flash_launches"] + d20["flash_attention"],
         "launches_by_path": {"serve_stablelm": served["flash_launches"],
                              "serve_recurrentgemma": rg["flash_launches"],
                              "serve_qwen2_moe": qwen["flash_launches"],
                              "llama4_scout_prefill": scout["flash_launches"],
-                             "examples": examples["flash_launches"]},
+                             "examples": examples["flash_launches"],
+                             "dryrun_h100": d20["flash_attention"]},
         "max_abs_err": max(flash["max_abs_err"], examples["flash_max_abs_err"]),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
@@ -2844,8 +2992,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:28",
-        "launches": rwkv["rwkv6_launches"],
-        "launches_by_path": {"serve_rwkv6": rwkv["rwkv6_launches"]},
+        "launches": rwkv["rwkv6_launches"] + d20["rwkv6_scan"],
+        "launches_by_path": {"serve_rwkv6": rwkv["rwkv6_launches"],
+                             "dryrun_h100": d20["rwkv6_scan"]},
         "max_abs_err": rwkv_k["max_abs_err"],
         "ms": rwkv_k["ms"],
         "plain_ms": rwkv_k["plain_ms"],
@@ -2859,8 +3008,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:22",
-        "launches": rg["rglru_launches"],
-        "launches_by_path": {"serve_recurrentgemma": rg["rglru_launches"]},
+        "launches": rg["rglru_launches"] + d20["rglru_scan"],
+        "launches_by_path": {"serve_recurrentgemma": rg["rglru_launches"],
+                             "dryrun_h100": d20["rglru_scan"]},
         "max_abs_err": rglru_k["max_abs_err"],
         "ms": rglru_k["ms"],
         "plain_ms": rglru_k["plain_ms"],

@@ -6,7 +6,11 @@
 # * A mesh is a torch DeviceMesh whose dim names are the mesh axes.
 #   placements_for turns a spec into DTensor placements, one per mesh dim.
 # * with_logical takes no mesh from a context: it returns x unchanged
-#   unless x is a DTensor, whose own mesh it redistributes over.
+#   unless x is a DTensor, whose own mesh it redistributes over.  A dim
+#   its mesh axes do not divide stays replicated, and those axes stay free
+#   for the dims after it (XLA pads such a dim instead; DTensor's views
+#   cannot reshape an uneven shard, as a batch of 1 over "data" would be).
+#   So 60 experts over a 16-way "model" leave "model" to expert_ff.
 # * named_sharding returns (mesh, placements): there is no NamedSharding
 #   object.
 """Logical-axis sharding rules (MaxText-style) for the production meshes.
@@ -29,6 +33,7 @@ the same code).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -156,8 +161,78 @@ def with_logical(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     if not isinstance(x, DTensor):
         return x
     mesh = x.device_mesh
-    spec = get_rules().resolve(mesh.mesh_dim_names, *logical)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    rules, spec = get_rules(), []
+    for n, name in zip(x.shape, logical):
+        # resolve one dim at a time, so an axis a dim cannot take (it does
+        # not divide it) stays free for the dims after it
+        used = [a for ax in spec if ax for a in ((ax,) if isinstance(ax, str) else ax)]
+        ax = rules.resolve([a for a in mesh.mesh_dim_names if a not in used], name)[0]
+        split = 1
+        for a in ((ax,) if isinstance(ax, str) else ax or ()):
+            split *= sizes[a]
+        spec.append(ax if n % split == 0 else None)
     return x.redistribute(mesh, placements_for(mesh, spec, x.ndim))
+
+
+def _split(x: torch.Tensor, dim: int) -> int:
+    """Into how many shards a DTensor splits ``dim`` (1 for a plain
+    tensor)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return 1
+    n = 1
+    for p, size in zip(x.placements, x.device_mesh.shape):
+        if isinstance(p, Shard) and p.dim == dim % x.ndim:
+            n *= size
+    return n
+
+
+def is_sharded(x: torch.Tensor, dim: int) -> bool:
+    """Whether ``x`` is a DTensor split along ``dim`` (False for a plain
+    tensor)."""
+    return _split(x, dim) > 1
+
+
+def gathered(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` whole along ``dim`` on every device, its other dims split as
+    they were (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    return x.redistribute(x.device_mesh, [Replicate() if isinstance(p, Shard) and p.dim == dim
+                                          else p for p in x.placements])
+
+
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient brought to x's placements in the
+    backward (a redistribution to the placements it has)."""
+    from torch.distributed.tensor import DTensor
+
+    return x.redistribute(x.device_mesh, x.placements) if isinstance(x, DTensor) else x
+
+
+def heads_split(x: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
+    """(..., n_heads * d_head) -> (..., n_heads, d_head).  A DTensor whose
+    split of the last dim would cut a head is gathered along it first (XLA
+    pads the heads to the split instead); the result keeps its placements
+    in the backward too, so a gradient that comes back split unevenly over
+    the heads is never viewed back."""
+    if n_heads % _split(x, -1):
+        x = gathered(x, -1)
+    return _pinned(x.reshape(*x.shape[:-1], n_heads, d_head))
+
+
+def heads_merged(x: torch.Tensor) -> torch.Tensor:
+    """(..., H, D) -> (..., H * D), the inverse of :func:`heads_split`: an
+    uneven split of the heads is gathered first, and the result keeps its
+    placements in the backward."""
+    if x.shape[-2] % _split(x, -2):
+        x = gathered(x, -2)
+    return _pinned(x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1]))
 
 
 def named_sharding(mesh, *logical: Optional[str]):
@@ -167,3 +242,58 @@ def named_sharding(mesh, *logical: Optional[str]):
 
 def spec_for(mesh, *logical: Optional[str]) -> P:
     return get_rules().resolve(mesh.mesh_dim_names, *logical)
+
+
+@functools.cache
+def register_op_strategies() -> None:
+    """Teach DTensor the port's own ops and the MoE router's scatter_reduce
+    (run once; DTensor keeps the rules for the process).
+
+    Each rule lists, per mesh dim, the placements an op runs under with no
+    communication: everything replicated, or split along a dim the op works
+    on independently.  The scans and flash_attention split over batch and
+    over heads (rglru_scan over channels); the sequence stays whole.
+    scatter_reduce splits along any dim but the one it scatters along.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    from ..kernels.flash_attention import ops as _fa  # noqa: F401  (defines the ops)
+    from ..kernels.rglru_scan import ops as _rg  # noqa: F401
+    from ..kernels.rwkv6_scan import ops as _rw  # noqa: F401
+
+    ops, R, S = torch.ops.repro_torch, Replicate(), Shard
+
+    @register_sharding([ops.rwkv6_scan.default, ops.rwkv6_scan_ref.default])
+    def _rwkv(r, k, v, w, u, return_state):
+        # (y, S) <- (r, k, v, w, u, return_state)
+        return [([R, R], [R] * 5 + [None]),
+                ([S(0), S(0)], [S(0)] * 4 + [R, None]),
+                ([S(2), S(1)], [S(2)] * 4 + [S(0), None])]
+
+    @register_sharding(ops.rwkv6_scan_ref_backward.default)
+    def _rwkv_bwd(r, k, v, w, u, dy, dS):
+        # (dr, dk, dv, dw, du per sequence) <- (r, k, v, w, u, dy, dS)
+        return [([R] * 5, [R] * 7),
+                ([S(0)] * 5, [S(0)] * 4 + [R, S(0), S(0)]),
+                ([S(2)] * 4 + [S(1)], [S(2)] * 4 + [S(0), S(2), S(1)])]
+
+    @register_sharding([ops.rglru_scan.default, ops.rglru_scan_ref.default])
+    def _rglru(a, b):
+        return [([p], [p, p]) for p in (R, S(0), S(2))]
+
+    @register_sharding(ops.rglru_scan_ref_backward.default)
+    def _rglru_bwd(a, b, dh):
+        return [([p, p], [p, p, p]) for p in (R, S(0), S(2))]
+
+    @register_sharding(ops.flash_attention.default)
+    def _flash(q, k, v, causal, window, block_k):
+        return [([p], [p, p, p, None, None, None]) for p in (R, S(0), S(2))]
+
+    @register_sharding(torch.ops.aten.scatter_reduce.two)
+    def _scatter_reduce(self, dim, index, src, reduce, include_self=True):
+        # out <- (self, dim, index, src, reduce, include_self)
+        dim %= len(self.shape)
+        dims = [d for d in range(len(self.shape))
+                if d != dim and self.shape[d] == index.shape[d] == src.shape[d]]
+        return [([p], [p, None, p, p, None, None]) for p in [R] + [S(d) for d in dims]]

@@ -1,10 +1,15 @@
 """Public flash-attention op in the model's (B, S, H, D) layout.
 
-A CUDA tensor goes to the hand-written kernels in
+``flash_attention`` calls the custom op ``repro_torch::flash_attention``:
+on a CUDA tensor the hand-written kernels in
 ``kernels/csrc/flash_attention.cu`` (D 64, 128 or 256; a smaller D runs as
 64, q, k and v padded with zero columns, which add nothing to a score, and
-the output's extra columns dropped) or the call raises; a CPU tensor goes
-to the plain version in :mod:`.ref`.
+the output's extra columns dropped), or the call raises; on a CPU tensor
+the plain version in :mod:`.ref`.  The op is one dispatch with a fake
+implementation, so a DTensor reaches it through the sharding rule in
+``distributed/sharding.py`` (batch and heads split, the sequence whole); on
+a plain CUDA tensor the wrapper calls the op's CUDA implementation itself
+(``kernels.direct_launch``).
 ``flash_attention.launches`` counts kernel launches.
 
 Two routes on the card, chosen by dtype (:func:`kernel_route`):
@@ -28,9 +33,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import Tensor
 
-from .. import _build
-from .ref import attention_reference
+from .. import _build, direct_launch, is_dtensor
+from . import ref
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
@@ -85,20 +91,28 @@ def flash_attention(
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if q.dtype != k.dtype or q.dtype != v.dtype or q.device != k.device or q.device != v.device:
         raise ValueError("q, k, v must share one dtype and device")
-    b, s, h, d = q.shape
+    s = q.shape[1]
     bq, bk = min(block_q, s), min(block_k, s)
     if s % bq or s % bk:
         raise ValueError(f"sequence {s} is not a multiple of the blocks ({bq}, {bk})")
-    if q.device.type == "cpu":
-        out = attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                  causal=causal, window=window)
-        return out.transpose(1, 2)
-    if q.device.type != "cuda":
+    if not is_dtensor(q) and q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
-    dk = kernel_head_dim(d)
-    route = kernel_route(q.dtype, dk, bk)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    run = _launch if direct_launch(q) else torch.ops.repro_torch.flash_attention
+    return run(q, k, v, causal, window or 0, bk)
+
+
+flash_attention.launches = 0
+
+
+def _launch(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
+            block_k: int) -> Tensor:
+    """The CUDA kernels (``window`` 0: none; the op's CUDA
+    implementation)."""
+    b, s, h, d = q.shape
+    dk = kernel_head_dim(d)
+    route = kernel_route(q.dtype, dk, block_k)
     if dk != d:
         q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
     q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
@@ -108,12 +122,22 @@ def flash_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, dk,
-                 int(causal), int(window or 0), route["kv_tile"], scale, _DTYPE_CODES[q.dtype],
-                 stream)
+                 int(causal), window, route["kv_tile"], scale, _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
     return out[..., :d] if dk != d else out
 
 
-flash_attention.launches = 0
+_flash_attention_op = torch.library.custom_op("repro_torch::flash_attention", _launch,
+                                              mutates_args=(), device_types="cuda")
+
+
+@_flash_attention_op.register_kernel("cpu")
+def _(q, k, v, causal, window, block_k):
+    out = ref.attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  causal=causal, window=window or None)
+    return out.transpose(1, 2)
+
+
+_flash_attention_op.register_fake(lambda q, k, v, causal, window, block_k: torch.empty_like(q))

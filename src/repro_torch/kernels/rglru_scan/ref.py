@@ -21,3 +21,19 @@ def rglru_reference(a, b):
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+def rglru_reference_backward(a, b, dh):
+    """The gradient of :func:`rglru_reference`: a, b, dh (B, T, D) ->
+    (da, db) (B, T, D) f32.  Backward through the chain with the carried
+    gradient g_t = dh_t + a_{t+1} g_{t+1}: db_t = g_t, da_t = g_t h_{t-1}."""
+    a, dh = a.float(), dh.float()
+    h = rglru_reference(a, b)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    carry = torch.zeros_like(a[:, 0])
+    for t in reversed(range(a.shape[1])):
+        g = dh[:, t] + carry
+        db[:, t] = g
+        da[:, t] = g * h[:, t - 1] if t else torch.zeros_like(g)
+        carry = a[:, t] * g
+    return da, db

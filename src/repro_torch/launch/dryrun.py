@@ -25,6 +25,16 @@
 #   tight than the two-axis meshes' (stablelm-1.6b train_4k on tiny-multi
 #   counts about twice the FLOPs per device of tiny).  The redistribution
 #   DTensor then performs is planned by its own rule.
+# * A recurrent scan is one op: the model calls the torch.library custom
+#   op of its scan (repro_torch::rwkv6_scan_ref / ::rglru_scan_ref under
+#   impl="reference", with one backward op in a train step), which DTensor
+#   runs per shard by the rule of distributed/sharding.py
+#   (register_op_strategies, called by cell) and op_cost.py counts by its
+#   rule, where JAX's HLO holds a while loop of S trips and hlo_cost
+#   multiplies its body.
+# * --impl kernel is JAX's --impl pallas: on "h100" the step runs the CUDA
+#   kernels (rwkv6_scan, rglru_scan, flash_attention) through their ops on
+#   the card's local tensors; on a host mesh the ops' fakes stand in.
 # * A DTensor op with no sharding strategy raises inside the step: the cell
 #   records status "error" with the op's name, as JAX records a failed
 #   compile, and the sweep goes on.  Nothing falls back to a replicated or
@@ -62,7 +72,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..configs import ARCHS, get_arch
-from ..distributed.sharding import get_rules, placements_for
+from ..distributed.sharding import get_rules, placements_for, register_op_strategies
 from ..models import SHAPES, cache_specs, get_shape, param_specs, shape_applicable
 from ..models.config import ModelConfig, ShapeConfig
 from .analysis import model_flops_for, param_counts, roofline_from_counts
@@ -227,6 +237,7 @@ def cell(cfg: ModelConfig, shape: ShapeConfig, mesh, impl: str = "reference") ->
     the last DTensor op dispatched."""
     from torch.distributed.tensor.experimental import implicit_replication
 
+    register_op_strategies()
     counter = OpCounter(mesh, tensor_device(mesh))
     counter.cost.trip_counts = _trip_counts(cfg, shape)
     if mesh.device_type == "cpu":

@@ -9,7 +9,20 @@
 #   tensors of indices to place a strided shard, are not counted: only ops
 #   whose tensors all lie where the local shards do.
 # * FLOPs come only from matrix products and convolutions, 2 x |out| x K,
-#   as hlo_cost counts dot and convolution.
+#   as hlo_cost counts dot and convolution.  (JAX's roofline takes the
+#   larger of that and XLA's cost_analysis, which also counts elementwise
+#   ops: on the CPU backend its decode cells count every bf16 operand's
+#   conversion to f32, which is no work on the card.)
+# * The port's own ops (torch.library custom ops, repro_torch::*) are one
+#   op each, counted on their local shards by a rule of their work:
+#   rwkv6_scan (and its plain-version op) 2 x B x S x H x D^2, hlo_cost's
+#   count of the one dot in the step of JAX's lax.scan, times its S trips;
+#   the backward of the plain version twice that (the dot's two
+#   transposes); rglru_scan 0 (JAX's associative_scan has no dot);
+#   flash_attention the two products over the (query, key) pairs its
+#   causal window keeps, 4 x B x H x D per pair (S(S+1)/2 pairs without a
+#   window), as chip_smoke.py's attn_bound_ms counts them.  Their bytes are
+#   operands plus outputs, as for every op.
 # * Bytes are operand plus output bytes of every aten op that is not a
 #   view, a broadcast operand counted at the size it is stored at.  Eager runs no fusion, so this is an UPPER BOUND against XLA's
 #   count, which charges a fusion only at its boundary.
@@ -107,6 +120,25 @@ def _conv_flops(args, out) -> float:
     return 2.0 * out.numel() * (w.numel() // w.shape[0])
 
 
+def _scan_flops(name: str, args) -> float:
+    """The rule of one of the port's own ops, on its local shards."""
+    op = name.partition("::")[2]
+    if op in ("rwkv6_scan", "rwkv6_scan_ref"):
+        b, s, h, d = args[0].shape
+        return 2.0 * b * s * h * d * d
+    if op == "rwkv6_scan_ref_backward":
+        b, s, h, d = args[0].shape
+        return 4.0 * b * s * h * d * d
+    if op == "flash_attention":
+        b, s, h, d = args[0].shape
+        causal, window = args[3], args[4]
+        if not causal:
+            return 4.0 * b * h * d * s * s
+        w = min(window, s) if window > 0 else s
+        return 4.0 * b * h * d * (w * (w + 1) / 2 + (s - w) * w)
+    return 0.0  # rglru_scan and its plain version and backward: no dot
+
+
 def _group(group_name: str):
     from torch.distributed.distributed_c10d import _resolve_process_group
 
@@ -144,11 +176,13 @@ class OpCounter(TorchDispatchMode):
     def _count(self, func, args, out, leaves) -> None:
         name = func._schema.name  # the op, whatever its overload
         c = self.cost
+        ns, _, op = name.partition("::")
         if name in _MATMULS:
             c.flops += _matmul_flops(name, args, out)
         elif name == "aten::convolution":
             c.flops += _conv_flops(args, out)
-        ns, _, op = name.partition("::")
+        elif ns == "repro_torch":
+            c.flops += _scan_flops(name, args)
         if ns == "_c10d_functional" and op in _COLL_KINDS:
             kind = _COLL_KINDS[op]
             group_name = args[-1]

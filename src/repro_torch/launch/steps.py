@@ -32,7 +32,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..distributed.sharding import with_logical
+from ..distributed.sharding import gathered, with_logical
 from ..models.config import ModelConfig, ShapeConfig
 from ..models.transformer import (
     decode_step,
@@ -207,7 +207,8 @@ def make_prefill_step(cfg: ModelConfig, impl: str = "reference"):
 def make_decode_fn(cfg: ModelConfig):
     def serve_step(params, cache, token):
         logits, new_cache = decode_step(cfg, params, token, cache)
-        next_token = logits[:, -1, :].argmax(dim=-1).to(torch.int32)[:, None]
+        # the vocab gathered first: DTensor's argmax over a sharded dim fails at batch 1
+        next_token = gathered(logits[:, -1, :], -1).argmax(dim=-1).to(torch.int32)[:, None]
         return next_token, new_cache
 
     return serve_step

@@ -15,7 +15,13 @@
 # * init_kv_cache takes a device ("cuda" by default, resolved by
 #   device.resolve_device).
 # * with_logical returns a plain tensor as it is; it constrains only a
-#   DTensor (the dry-run's meshes).
+#   DTensor (the dry-run's meshes).  Decode constrains q on ("batch",
+#   "heads") as the full path does (else DTensor leaves it a partial sum
+#   over "data" and gathers the cache to meet it), keeps the heads a batch
+#   dim of 4-D products, so a cache split over kv_heads or kv_seq is read
+#   where it lies (on a plain tensor the same bmm as JAX's einsum, the same
+#   bits), and writes a kv_seq-split cache with a masked select, as XLA
+#   partitions its dynamic_update_slice.
 """GQA attention: train/prefill (full-sequence) and decode (KV cache) paths.
 
 Supports causal and local-window (RecurrentGemma) masking.  The
@@ -29,7 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
-from ..distributed.sharding import with_logical
+from ..distributed.sharding import heads_merged, heads_split, is_sharded, with_logical
 from .config import ModelConfig
 from .layers import _in_dtype, apply_rope, dtype_of, einsum, matmul, normal_init, rope_angles
 
@@ -61,8 +67,7 @@ def attn_specs(cfg: ModelConfig, tp: int = 16) -> Dict:
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
-    b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, d_head)
+    return heads_split(x, n_heads, d_head)
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
@@ -117,18 +122,18 @@ def attention_full(
     k = apply_rope(k, cos, sin)
     q = with_logical(q, "batch", None, "heads", None)
     k = with_logical(k, "batch", None, "kv_heads" if hkv % 8 == 0 else None, None)
+    # k and v repeated to q's heads and split as q is (XLA carries q's split
+    # onto them; DTensor would gather q to meet a replicated k)
+    k, v = (with_logical(_repeat_kv(t, hq // hkv), "batch", None, "heads", None)
+            for t in (k, v))
 
     if impl == "kernel":
         from ..kernels.flash_attention.ops import flash_attention
 
-        out = flash_attention(q, _repeat_kv(k, hq // hkv), _repeat_kv(v, hq // hkv),
-                              causal=True, window=window)
+        out = flash_attention(q, k, v, causal=True, window=window)
     elif impl == "chunked":
-        out = _attention_chunked(q, _repeat_kv(k, hq // hkv), _repeat_kv(v, hq // hkv),
-                                 window=window)
+        out = _attention_chunked(q, k, v, window=window)
     elif impl == "reference":
-        k = _repeat_kv(k, hq // hkv)
-        v = _repeat_kv(v, hq // hkv)
         scores = _scaled(einsum("bqhd,bkhd->bhqk", q, k), dh)
         bias = _mask_bias(q.shape[1], k.shape[1], 0, window, torch.float32, x.device)
         probs = _softmax(scores + bias).to(q.dtype)
@@ -137,8 +142,7 @@ def attention_full(
         raise ValueError(f"unknown attention impl {impl!r}; use 'reference', 'chunked' "
                          "or 'kernel'")
 
-    out = out.reshape(x.shape[0], x.shape[1], hq * dh)
-    return with_logical(matmul(out, p["wo"]), "batch", "seq", None)
+    return with_logical(matmul(heads_merged(out), p["wo"]), "batch", "seq", None)
 
 
 def _attention_chunked(
@@ -226,16 +230,27 @@ def attention_decode(
     cos, sin = rope_angles(t.reshape(1), dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = with_logical(q, "batch", None, "heads", None)
 
     slot = (t % length) if window else t
     # dynamic_update_slice clamps the start into range; so does this
     slot = slot.reshape(1).long().clamp(0, length - 1)
-    cache_k.index_copy_(1, slot, k)
-    cache_v.index_copy_(1, slot, v)
+    if is_sharded(cache_k, 1):
+        # a cache split over its sequence (kv_seq): each shard rewrites the
+        # rows it holds, the slot's from the new token, as XLA partitions a
+        # dynamic_update_slice on a sharded dim
+        hit = (torch.arange(length, device=x.device) == slot)[None, :, None, None]
+        cache_k.copy_(torch.where(hit, k, cache_k))
+        cache_v.copy_(torch.where(hit, v, cache_v))
+    else:
+        cache_k.index_copy_(1, slot, k)
+        cache_v.index_copy_(1, slot, v)
 
     kk = _repeat_kv(cache_k, hq // hkv)
     vv = _repeat_kv(cache_v, hq // hkv)
-    scores = _scaled(einsum("bqhd,bkhd->bhqk", q, kk), dh)  # (B, H, 1, L)
+    # heads stay a batch dim of 4-D products (B, H, 1, D) @ (B, H, D, L): a
+    # sharded cache is read where it lies
+    scores = _scaled(matmul(q.transpose(1, 2), kk.permute(0, 2, 3, 1)), dh)  # (B, H, 1, L)
     kpos = torch.arange(length, device=x.device)
     if window:
         valid = (kpos <= t % length) | (t >= length)  # rolling buffer: all valid once full
@@ -243,6 +258,6 @@ def attention_decode(
         valid = kpos <= t
     bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
     probs = _softmax(scores.float() + bias[None, None, None, :])
-    out = einsum("bhqk,bkhd->bqhd", probs.to(x.dtype), vv)
+    out = matmul(probs.to(x.dtype), vv.transpose(1, 2)).transpose(1, 2)  # (B, 1, H, D)
     out = out.reshape(b, 1, hq * dh)
     return with_logical(matmul(out, p["wo"]), "batch", None, None), cache_k, cache_v

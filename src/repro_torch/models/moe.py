@@ -2,22 +2,31 @@
 # * moe_params draws from a torch.Generator (other numbers than JAX's keys;
 #   tests convert JAX's weights with convert.params_from_jax); the tree,
 #   shapes and dtypes are JAX's.
-# * The sort route's G dispatch groups run as one batch with an offset per
-#   group where JAX vmaps the group's dispatch and combine.  Its capacity
-#   buffer is laid out (E, G, cap, d), so the expert products are one
-#   product batched over E on the stacked weights (JAX's
-#   "gecd,edf->gecf"), with no copy of the weights.
+# * The sort route's G dispatch groups run as one batch with the group as
+#   the leading dim of every index tensor and of the capacity buffer
+#   (G, E * cap + 1, d), where JAX vmaps the group's dispatch and combine;
+#   so the groups split over "batch" with no exchange between them.  For
+#   the expert products the buffer is laid out (E, G * cap, d): one product
+#   batched over E on the stacked weights (JAX's "gecd,edf->gecf"), with no
+#   copy of the weights.
 # * The combine is a gather: each token takes its k slots back in the
 #   order of the stable sort (ascending expert) and sums them one by one,
 #   rounding to the model's dtype after each add, as XLA's scatter-add
 #   into a zero buffer does.  No atomics, so two runs give the same bits.
+# * The dense route's combine weights are scattered into a fresh buffer
+#   (out-of-place scatter), as JAX's .at[].add into zeros.
 # * The dense route (the oracle, and every decode step) runs its expert
 #   products batched over E the same way, torch.matmul(x2d[None], w) ->
 #   (E, T, f), where torch.einsum("td,edf->tef") may copy every expert's
 #   weights into a fresh layout.
 # * act(g) * u goes op by op (layers.activation_fn), as in mlp_apply.
 # * with_logical returns a plain tensor as it is; it constrains only a
-#   DTensor (the dry-run's meshes), here the layer's output only.
+#   DTensor (the dry-run's meshes), at JAX's sites: the token groups on
+#   "batch", the capacity buffer on ("batch", "experts") (on "experts"
+#   without groups), the expert hidden state on ("experts", "batch",
+#   "expert_ff") in the port's (E, G * cap, f) layout, and the output.
+#   The router's scatter_reduce runs under the rule of
+#   distributed/sharding.py (split along any dim but the scattered one).
 """Mixture-of-Experts FFN: top-k router + capacity-buffered sort dispatch.
 
 Two implementations sharing the router:
@@ -42,6 +51,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..distributed.sharding import with_logical
+from ..kernels import is_dtensor
 from .config import ModelConfig
 from .layers import (
     activation_fn,
@@ -104,44 +114,74 @@ def _route(x2d: torch.Tensor, router: torch.Tensor, m
     return gates, experts, lb_loss + z_loss
 
 
-def _expert_mlp(w_gate, w_up, w_down, h: torch.Tensor, act) -> torch.Tensor:
+def _expert_mlp(w_gate, w_up, w_down, h: torch.Tensor, act, hidden=None) -> torch.Tensor:
     """h: (E, C, d) -> (E, C, d) through each expert's gated MLP, one product
-    batched over E per projection."""
+    batched over E per projection; ``hidden`` the logical axes of the
+    hidden state (E, C, f), if it is constrained."""
     g = matmul(h, w_gate)
     u = matmul(h, w_up)
-    return matmul(act(g) * u, w_down)
+    hh = act(g) * u
+    if hidden:
+        hh = with_logical(hh, *hidden)
+    return matmul(hh, w_down)
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row ``idx[g, i]`` of group g of x (G, R, d): (G, n, d).  A DTensor
+    gathers along its rows, each group on its own devices; a plain tensor
+    indexes rows of the flattened groups (a row-copy kernel, where an
+    elementwise gather costs the card about half as much again)."""
+    if is_dtensor(x):
+        return x.gather(1, idx[..., None].expand(*idx.shape, x.shape[-1]))
+    G, R, d = x.shape
+    flat = idx + torch.arange(G, device=idx.device)[:, None] * R
+    return x.reshape(G * R, d)[flat.reshape(-1)].reshape(G, -1, d)
+
+
+def _put_rows(buf: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """buf (G, R, d) with row idx[g, i] of group g set to src[g, i] (the
+    spare row, the only one named twice, takes any of its rows); split as
+    ``src`` is."""
+    if is_dtensor(src):
+        return buf.scatter(1, idx[..., None].expand(*idx.shape, buf.shape[-1]), src)
+    G, R, d = buf.shape
+    flat = idx + torch.arange(G, device=idx.device)[:, None] * R
+    buf.reshape(G * R, d)[flat.reshape(-1)] = src.reshape(-1, d)
+    return buf
 
 
 def _dispatch(x2d: torch.Tensor, experts: torch.Tensor, m, G: int, cap: int):
-    """The tokens of G groups into capacity buffers (E, G * cap, d).
+    """The tokens of G groups into capacity buffers, laid out (E, G * cap, d)
+    for the expert products.
 
     Per group, the slots (token, rank) are sorted stably by expert; a slot's
     position within its expert's run is its index less the run's start, and
-    a slot at or past ``cap`` goes to the spare row E * G * cap (dropped).
-    Returns the buffer, and per slot in (token, rank) order its buffer row
-    (G, tg, k) and whether it was kept."""
+    a slot at or past ``cap`` goes to the group's spare row E * cap
+    (dropped).  Returns the buffer, and per slot in (token, rank) order its
+    row in its group's buffer (G, tg, k) and whether it was kept."""
     T, d = x2d.shape
     E, k = m.num_experts, m.top_k
     tg, n = T // G, (T // G) * k
     dev = x2d.device
-    flat_e = experts.reshape(G, n)
-    se, order = torch.sort(flat_e, dim=-1, stable=True)
+    batch = "batch" if G > 1 else None
+    se, order = torch.sort(experts.reshape(G, n), dim=-1, stable=True)
     pos = torch.arange(n, device=dev).expand(G, n)
-    base = torch.arange(G, device=dev)[:, None] * E
-    run_start = torch.full((G * E,), n, dtype=torch.int64, device=dev).scatter_reduce(
-        0, (base + se).reshape(-1), pos.reshape(-1), "amin").reshape(G, E)
+    run_start = torch.full((G, E), n, dtype=torch.int64, device=dev).scatter_reduce(
+        1, se, pos, "amin")
     pos_in_e = pos - run_start.gather(1, se)
     keep = pos_in_e < cap
-    group = torch.arange(G, device=dev)[:, None]
-    row = torch.where(keep, se * (G * cap) + group * cap + pos_in_e, E * G * cap)
-    st = order // k + group * tg                   # each sorted slot's token in x2d
-    buf = torch.zeros((E * G * cap + 1, d), dtype=x2d.dtype, device=dev)
-    buf[row.reshape(-1)] = x2d[st.reshape(-1)]
+    row = torch.where(keep, se * cap + pos_in_e, E * cap)
+    # the tokens split on "batch" before the split into groups, so each
+    # group lies whole on its devices (and the gradient's view back holds)
+    xg = with_logical(x2d, batch, None).reshape(G, tg, d)
+    buf = _put_rows(torch.zeros((G, E * cap + 1, d), dtype=x2d.dtype, device=dev), row,
+                    _rows(xg, order // k))                  # each sorted slot's token
+    h = with_logical(buf[:, :E * cap].reshape(G, E, cap, d), batch, "experts", None, None)
     # back to (token, rank) order: the inverse of each group's sort
     inv = torch.argsort(order, dim=-1)
     row = row.gather(1, inv).reshape(G, tg, k)
     keep = keep.gather(1, inv).reshape(G, tg, k)
-    return buf[:E * G * cap].reshape(E, G * cap, d), row, keep
+    return h.transpose(0, 1).reshape(E, G * cap, d), row, keep
 
 
 def _combine(yb: torch.Tensor, row: torch.Tensor, keep: torch.Tensor,
@@ -150,17 +190,23 @@ def _combine(yb: torch.Tensor, row: torch.Tensor, keep: torch.Tensor,
     stable sort (ascending expert) from a zero row, one rounding per add.
     yb: (E, G * cap, d); row, keep: (G, tg, k); gates, experts: (T, k)."""
     E, _, d = yb.shape
-    T, k = gates.shape
-    yb = torch.cat([yb.reshape(-1, d), yb.new_zeros((1, d))])
+    G, tg, k = row.shape
+    batch = "batch" if G > 1 else None
+    # the experts' outputs split as their inputs were, so the view back to
+    # groups keeps whole experts per shard
+    yb = with_logical(yb, "experts", batch, None)
+    yg = yb.reshape(E, G, -1, d).transpose(0, 1).reshape(G, -1, d)
+    yg = torch.cat([yg, yg.new_zeros((G, 1, d))], dim=1)     # the spare row
     by_expert = torch.argsort(experts, dim=-1)
-    row = row.reshape(T, k).gather(1, by_expert)
-    keep = keep.reshape(T, k).gather(1, by_expert)
-    g = gates.gather(1, by_expert).to(yb.dtype)
-    y = torch.zeros((T, d), dtype=yb.dtype, device=yb.device)
+    row = row.reshape(G * tg, k).gather(1, by_expert).reshape(G, tg, k)
+    keep = keep.reshape(G * tg, k).gather(1, by_expert).reshape(G, tg, k)
+    gates = with_logical(gates, batch, None)
+    g = gates.gather(1, by_expert).to(yb.dtype).reshape(G, tg, k)
+    y = torch.zeros((G, tg, d), dtype=yb.dtype, device=yb.device)
     for j in range(k):
-        contrib = yb[row[:, j]] * g[:, j, None]
-        y = y + torch.where(keep[:, j, None], contrib, 0.0)
-    return y
+        contrib = _rows(yg, row[:, :, j]) * g[:, :, j, None]
+        y = y + torch.where(keep[:, :, j, None], contrib, 0.0)
+    return y.reshape(G * tg, d)
 
 
 def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, decode: bool = False
@@ -181,8 +227,8 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, decode: bool = False
     if m.impl == "dense" or decode:
         # oracle: all experts on all tokens, (E, T, f) without copying weights
         y_all = _expert_mlp(p["w_gate"], p["w_up"], p["w_down"], x2d[None], act)
-        combine = torch.zeros((T, m.num_experts), dtype=x.dtype, device=x.device)
-        combine.scatter_(1, experts, gates.to(x.dtype))
+        combine = torch.zeros((T, m.num_experts), dtype=x.dtype, device=x.device).scatter(
+            1, experts, gates.to(x.dtype))
         y = einsum("etd,te->td", y_all, combine)
     else:
         # sort-based capacity dispatch in G token groups
@@ -191,7 +237,8 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, decode: bool = False
         tg = T // G
         cap = int(max(1, round(tg * m.top_k / m.num_experts * m.capacity_factor)))
         h, row, keep = _dispatch(x2d, experts, m, G, cap)
-        yb = _expert_mlp(p["w_gate"], p["w_up"], p["w_down"], h, act)
+        yb = _expert_mlp(p["w_gate"], p["w_up"], p["w_down"], h, act,
+                         hidden=("experts", "batch" if G > 1 else None, "expert_ff"))
         y = _combine(yb, row, keep, gates, experts)
 
     if m.d_ff_shared:

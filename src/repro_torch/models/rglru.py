@@ -5,7 +5,10 @@
 #   sequential scan (kernels/rglru_scan/ref.py) where JAX runs
 #   lax.associative_scan for every impl but "pallas": the two sum in
 #   another order and agree to about 1e-6 in f32, not bit for bit.  An
-#   impl name the port does not know raises ValueError.
+#   impl name the port does not know raises ValueError.  Every impl reaches
+#   the scan as one custom op (repro_torch::rglru_scan, ::rglru_scan_ref),
+#   so a DTensor runs it per shard, split over batch and channels; the
+#   plain version's op has a backward (a reverse scan).
 # * softplus is written as jax.nn.softplus computes it, logaddexp(x, 0).
 # * rglru_params draws from a torch.Generator (other numbers than JAX's
 #   keys; tests convert JAX's weights with convert.params_from_jax);
@@ -101,9 +104,9 @@ def _scan(a: torch.Tensor, gx: torch.Tensor, impl: str) -> torch.Tensor:
 
         return rglru_scan(a, gx)
     if impl in ("reference", "chunked"):
-        from ..kernels.rglru_scan.ref import rglru_reference
+        from ..kernels.rglru_scan.ops import rglru_scan_reference
 
-        return rglru_reference(a, gx)
+        return rglru_scan_reference(a, gx)
     raise ValueError(f"unknown rglru impl {impl!r}; use 'reference', 'kernel' or 'chunked'")
 
 

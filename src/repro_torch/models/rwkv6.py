@@ -8,7 +8,11 @@
 #   loop.  An impl name the port does not know raises ValueError.
 # * impl="reference" runs the kernel's plain version (the JAX step loop as
 #   a loop over the tokens, kernels/rwkv6_scan/ref.py) where JAX runs its
-#   own lax.scan of the same steps.
+#   own lax.scan of the same steps.  Both impls reach the scan as one
+#   custom op (repro_torch::rwkv6_scan, ::rwkv6_scan_ref), so a DTensor
+#   runs it per shard, split over batch and heads, and the dry-run counts
+#   it by its rule in launch/op_cost.py; the plain version's op has a
+#   backward (a reverse scan), so the layer trains.
 # * rwkv_params draws from a torch.Generator (other numbers than JAX's
 #   keys; tests convert JAX's weights with convert.params_from_jax);
 #   rwkv_init_state takes a device.
@@ -41,7 +45,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..distributed.sharding import with_logical
+from ..distributed.sharding import heads_merged, heads_split, with_logical
 from .config import ModelConfig
 from .layers import activation_fn, dtype_of, matmul, normal_init, rms_norm
 
@@ -115,8 +119,7 @@ def _projections(p: Dict, x: torch.Tensor, x_prev: torch.Tensor, cfg: ModelConfi
 
 
 def _head_split(x: torch.Tensor, H: int, dh: int) -> torch.Tensor:
-    b, s, _ = x.shape
-    return x.reshape(b, s, H, dh)
+    return heads_split(x, H, dh)
 
 
 def _shift_right(x: torch.Tensor) -> torch.Tensor:
@@ -146,17 +149,15 @@ def rwkv_scan_full(
         out = rwkv6_scan(r, k, v, w, p["bonus_u"], return_state=return_state)
         y, S = out if return_state else (out, None)
     elif impl == "reference":
-        from ..kernels.rwkv6_scan.ref import rwkv6_reference
+        from ..kernels.rwkv6_scan.ops import rwkv6_scan_reference
 
-        y, S = rwkv6_reference(*(a.transpose(1, 2) for a in (r, k, v, w)), p["bonus_u"],
-                               return_state=True)
-        y = y.transpose(1, 2)
+        y, S = rwkv6_scan_reference(r, k, v, w, p["bonus_u"], return_state=True)
     elif impl == "chunked":
         y, S = _rwkv_chunked(r, k, v, w, p["bonus_u"], return_state=True)
     else:
         raise ValueError(f"unknown rwkv impl {impl!r}; use 'reference', 'kernel' or 'chunked'")
 
-    y = y.reshape(b, s, d).to(x.dtype)
+    y = heads_merged(y).to(x.dtype)
     y = rms_norm(y, p["ln_x"], cfg.norm_eps)     # group-norm stand-in
     y = y * activation_fn("silu")(g)
     out = with_logical(matmul(y, p["w_o"]), "batch", "seq", None)

@@ -631,3 +631,46 @@ def test_h100_mesh_reshard_restore_and_dryrun_cell(tmp_path):
     r = res["roofline"]
     assert res["n_devices"] == 1 and r["flops_per_device"] > 0 and r["collective_bytes"] == 0
     assert 0 < res["bytes_per_device"] < 80e9 and res["fits_80gb_hbm"]
+
+
+@pytest.mark.parametrize("op", ["rwkv6_scan", "rwkv6_scan_reference", "rglru_scan",
+                                "rglru_scan_reference", "flash_attention"])
+def test_op_on_h100_dtensor_equals_the_direct_call(op):
+    """Each model kernel's op (and the plain versions' ops) on 1 x 1
+    DTensors of the card gives the direct call's bits; the kernel ops
+    launch their kernel once per call."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.distributed.sharding import register_op_strategies
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
+    from repro_torch.launch.mesh import mesh_for_name, release
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    if op.startswith("rwkv6"):
+        xs = [torch.randn(2, 64, 4, 64, generator=gen, device="cuda") for _ in range(3)]
+        xs += [torch.rand(2, 64, 4, 64, generator=gen, device="cuda") * 0.5 + 0.5,
+               torch.randn(4, 64, generator=gen, device="cuda")]
+        fn = getattr(rwkv_ops, op)
+        call, counter = (lambda *t: fn(*t, return_state=True)), rwkv_ops.rwkv6_scan
+    elif op.startswith("rglru"):
+        xs = [torch.rand(2, 64, 256, generator=gen, device="cuda"),
+              torch.randn(2, 64, 256, generator=gen, device="cuda")]
+        call, counter = getattr(rglru_ops, op), rglru_ops.rglru_scan
+    else:
+        xs = [torch.randn(2, 256, 4, 128, generator=gen, device="cuda", dtype=torch.bfloat16)
+              for _ in range(3)]
+        call, counter = (lambda *t: flash_attention(*t, window=64)), flash_attention
+    register_op_strategies()
+    try:
+        mesh = mesh_for_name("h100")
+        before = counter.launches
+        direct = call(*xs)
+        via = call(*(DTensor.from_local(x, mesh, [Replicate(), Replicate()], run_check=False)
+                     for x in xs))
+    finally:
+        release()
+    direct, via = ((t,) if isinstance(t, torch.Tensor) else t for t in (direct, via))
+    assert all(torch.equal(a, b.to_local()) for a, b in zip(direct, via))
+    kernel_op = not op.endswith("_reference")
+    assert counter.launches - before == (2 if kernel_op else 0)

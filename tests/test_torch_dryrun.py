@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from repro_torch.launch.mesh import release
 
@@ -62,11 +63,21 @@ def test_dryrun_tiny_meshes_count_the_train_step(tmp_path):
         assert r["flops_per_device"] > r["model_flops"] / 8
 
 
-def test_dryrun_skips_and_errors_are_recorded(tmp_path):
+def test_dryrun_skips_and_errors_are_recorded(tmp_path, monkeypatch):
     """A cell the shape does not apply to prints [skip]; an existing JSON is
-    kept with --skip-existing; a step that fails on the mesh records the op
-    (the MoE router's scatter_reduce has no DTensor sharding strategy)."""
+    kept with --skip-existing; a step that fails on the mesh records the op:
+    here the decode step's embedded token goes through an op made for the
+    test, which has no DTensor sharding strategy."""
     from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+
+    @torch.library.custom_op("test_dryrun::no_rule", mutates_args=())
+    def no_rule(x: torch.Tensor) -> torch.Tensor:
+        return x.clone()
+
+    no_rule.register_fake(lambda x: torch.empty_like(x))
+    take = transformer._take_rows
+    monkeypatch.setattr(transformer, "_take_rows", lambda *a: no_rule(take(*a)))
 
     stdout = _port_dryrun(["--arch", "stablelm-1.6b", "--shape", "long_500k",
                            "--mesh", "tiny", "--out", str(tmp_path)])
@@ -76,8 +87,8 @@ def test_dryrun_skips_and_errors_are_recorded(tmp_path):
     stdout = _port_dryrun(["--arch", "stablelm-1.6b", "--shape", "long_500k", "--mesh", "tiny",
                            "--out", str(tmp_path), "--skip-existing"])
     assert "[skip] stablelm-1.6b_long_500k_tiny\n" in stdout
-    res = dryrun.run_cell("qwen2-moe-a2.7b", "decode_32k", "tiny")
-    assert res["status"] == "error" and "aten.scatter_.src" in res["error"], res.get("error")
+    res = dryrun.run_cell("stablelm-1.6b", "decode_32k", "tiny")
+    assert res["status"] == "error" and "test_dryrun.no_rule" in res["error"], res.get("error")
 
 
 def test_prefill_flops_within_a_quarter_of_jax(tmp_path):
