@@ -165,6 +165,18 @@ Phases, in order; any failure ends the run with a nonzero exit:
    must not exceed the device time of a profiled prefill of the same
    configuration on plain tensors; and each op called on 1 x 1 DTensors
    gives the direct call's bits.
+21. the padded head layout (slice 13): the production meshes' 16-way
+   "model" axis does not divide 40 heads, so the dry-run places parameters
+   padded to 48 (``models/padding.py``); the same ``pad_params`` on plain
+   tensors of the card, at full width: Llama-4-Scout cut to 2 layers
+   (phase 17 (b)'s model and seed; 40 -> 48 q heads, 8 groups of 5 -> 6,
+   through ``flash_attention``) and RWKV6-3B cut to 4 layers (40 -> 48
+   heads through ``rwkv6_scan``).  Each prefills 4 prompts of 1024 tokens
+   padded and unpadded: in float32 weights the padded logits are within
+   1e-5 (of the largest logit) of the unpadded ones; in bf16 each prefill
+   decodes 8 greedy steps and the tokens are equal; every padded head's
+   output before the output projection (and RWKV's padded state after the
+   steps) is exactly 0; the kernels' launches are counted and asserted.
 
 Every campaign's phase A goes through the apps' lane drivers; a driver that
 raises and falls back to the host loop fails the run.
@@ -237,6 +249,9 @@ from repro_torch.launch.steps import make_decode_fn, train_state_specs  # noqa: 
 from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models import init_cache, init_params, moe, prefill  # noqa: E402
 from repro_torch.models.attention import _repeat_kv  # noqa: E402
+from repro_torch.models import attention, rwkv6  # noqa: E402
+from repro_torch.models.padding import (  # noqa: E402
+    attn_heads, pad_cache, pad_params, q_groups, rwkv_heads)
 
 #: H100 SXM device-memory rate, bytes/s, and dense bf16 tensor-core rate,
 #: FLOP/s (NVIDIA data sheet)
@@ -383,6 +398,14 @@ DRYRUN_KERNEL_CELLS = (("dryrun-h100-rwkv6x4", RWKV_ARCH, 4),
                        ("dryrun-h100-qwen2-moex2", MOE_ARCH, 2))
 #: the layer kind each model kernel runs once per layer of
 KERNEL_KIND = {"rwkv6_scan": "rwkv", "rglru_scan": "rec", "flash_attention": "attn"}
+#: the padded head layout (phase 21): the production meshes' "model" axis,
+#: the models (arch, layers, the kernel their heads go through) and the
+#: greedy steps after each prefill; float32 logits held to this share of
+#: the largest logit
+PAD_SPLIT = 16
+PAD_MODELS = (("scout", SCOUT_ARCH, SCOUT_LAYERS, "flash_attention"),
+              ("rwkv6", RWKV_ARCH, 4, "rwkv6_scan"))
+PAD_DECODE_STEPS, PAD_F32_TOL = 8, 1e-5
 
 
 def log(msg: str) -> None:
@@ -1381,16 +1404,20 @@ def _recording(into: list, pick):
     return wrap
 
 
-def _greedy(cfg, params, logits, pcache, steps: int):
+def _greedy(cfg, params, logits, pcache, steps: int, split: int = 1, into=None):
     """``steps`` greedy decode steps from a prefill's logits and cache: the
-    tokens (B, steps + 1), the prefill's own first."""
-    cache = serve._splice_cache(cfg, init_cache(cfg, SERVE_PROMPTS, SERVE_PROMPT_LEN + steps + 1,
-                                                logits.device.type), pcache, SERVE_PROMPT_LEN)
+    tokens (B, steps + 1), the prefill's own first.  ``split``: the heads
+    of ``params`` are padded to it (models/padding.py); ``into``, a dict
+    that takes the cache after the steps."""
+    empty = init_cache(cfg, SERVE_PROMPTS, SERVE_PROMPT_LEN + steps + 1, logits.device.type)
+    cache = serve._splice_cache(cfg, pad_cache(cfg, empty, split), pcache, SERVE_PROMPT_LEN)
     step_fn = make_decode_fn(cfg)
     tokens = [logits.argmax(dim=-1).to(torch.int32)[:, None]]
     for _ in range(steps):
         token, cache = step_fn(params, cache, tokens[-1])
         tokens.append(token)
+    if into is not None:
+        into["cache"] = cache
     return torch.cat(tokens, dim=1)
 
 
@@ -2787,6 +2814,116 @@ def phase_dryrun_kernels(dev: str) -> dict:
             "seconds": seconds}
 
 
+# ----------------------------------------------- 21. the padded head layout
+def _padded_slots(cfg, kind: str, n_heads: int) -> torch.Tensor:
+    """The padded heads' indices among ``n_heads`` (models/padding.py)."""
+    if kind == "rwkv":
+        real = cfg.d_model // cfg.rwkv.head_dim
+        return torch.arange(real, n_heads)
+    groups, per, per_padded = q_groups(cfg, n_heads)
+    return torch.tensor([g * per_padded + i for g in range(groups)
+                         for i in range(per, per_padded)])
+
+
+def _padded_prefill(cfg, params, prompts, kind: str, n_heads: int, dev: str):
+    """A kernel prefill of the padded model, with the largest magnitude in
+    its padded heads' outputs before the output projection (every layer's,
+    as heads_merged receives them: (B, S, H, D))."""
+    seen = []
+    slots = _padded_slots(cfg, kind, n_heads).to(dev)
+    module = attention if kind == "attn" else rwkv6
+
+    def wrap(fn):
+        def merged(x):
+            seen.append(x.index_select(-2, slots).abs().amax())
+            return fn(x)
+        return merged
+
+    with _patched(module, "heads_merged", wrap):
+        logits, cache = prefill(cfg, params, prompts, impl="kernel")
+    if len(seen) != cfg.n_layers:
+        raise AssertionError(f"{len(seen)} padded outputs recorded, expected {cfg.n_layers}")
+    return logits, cache, float(torch.stack(seen).max())
+
+
+def _padded_model(label: str, arch: str, layers: int, kernel: str, dev: str) -> dict:
+    """One model of phase 21: float32 logits and bf16 greedy streams,
+    padded against unpadded, the padded heads' outputs, the launches."""
+    cfg = _cut_groups(get_arch(arch), layers)
+    kind = cfg.groups[0][0][0]
+    if kind == "rwkv":
+        real, heads = cfg.d_model // cfg.rwkv.head_dim, rwkv_heads(cfg, PAD_SPLIT)
+    else:
+        real, heads = cfg.n_heads, attn_heads(cfg, PAD_SPLIT)
+    counter = {"flash_attention": flash_attention, "rwkv6_scan": rwkv6_scan}[kernel]
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    prompts = serve.make_prompts(cfg, SERVE_PROMPTS, SERVE_PROMPT_LEN, dev)
+    counter.launches = 0
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _tree_map(params, lambda x: x.float())
+    want, _ = prefill(c32, p32, prompts, impl="kernel")
+    got, _, pad32 = _padded_prefill(c32, pad_params(c32, p32, PAD_SPLIT), prompts, kind,
+                                    heads, dev)
+    del p32
+    torch.cuda.empty_cache()
+    scale = float(want.abs().max())
+    f32_rel = float((got - want).abs().max()) / scale
+    if f32_rel > PAD_F32_TOL:
+        raise AssertionError(f"{label}: float32 padded prefill logits differ from the "
+                             f"unpadded ones by {f32_rel:.3e} of the largest, over "
+                             f"{PAD_F32_TOL}")
+
+    logits, pcache = prefill(cfg, params, prompts, impl="kernel")
+    plain = _greedy(cfg, params, logits, pcache, PAD_DECODE_STEPS)
+    del pcache
+    padded = pad_params(cfg, params, PAD_SPLIT)
+    logits_p, pcache, pad16 = _padded_prefill(cfg, padded, prompts, kind, heads, dev)
+    after = {}
+    stream = _greedy(cfg, padded, logits_p, pcache, PAD_DECODE_STEPS, split=PAD_SPLIT,
+                     into=after)
+    launches = counter.launches
+    state_pad = 0.0
+    if kind == "rwkv":
+        S = after["cache"]["group0"]["pos0"]["S"]
+        state_pad = float(S[:, :, real:].abs().max())
+    del pcache, after, padded, params
+    torch.cuda.empty_cache()
+    same = torch.equal(plain, stream)
+    if not same:
+        diff = (plain != stream).nonzero()
+        raise AssertionError(f"{label}: the padded bf16 greedy stream leaves the unpadded one "
+                             f"at {diff[:4].tolist()}")
+    if pad32 != 0.0 or pad16 != 0.0 or state_pad != 0.0:
+        raise AssertionError(f"{label}: padded heads are not 0: before the output projection "
+                             f"{pad32} (f32), {pad16} (bf16); RWKV state {state_pad}")
+    want_launches = 4 * cfg.n_layers  # four prefills (f32 and bf16, each padded and not)
+    if launches != want_launches:
+        raise AssertionError(f"{label}: {kernel} launched {launches} times, expected "
+                             f"{want_launches} (once per layer of four prefills)")
+    log(f"[pad21] {label}: {arch} cut to {cfg.n_layers} layers, {real} -> {heads} heads "
+        f"over {PAD_SPLIT}: float32 prefill logits {tuple(want.shape)} padded vs unpadded max "
+        f"|diff| {f32_rel:.3e} of the largest ({scale:.2f}); bf16 greedy streams "
+        f"{tuple(stream.shape)} equal; padded heads' outputs before the output projection "
+        f"0 in every layer" + (f", padded state 0 after {PAD_DECODE_STEPS} steps"
+                               if kind == "rwkv" else "") + f"; {kernel} {launches} launches")
+    return {"arch": arch, "layers": cfg.n_layers, "heads": real, "padded_heads": heads,
+            "f32_rel_diff": f32_rel, "greedy_equal": same, "kernel": kernel,
+            "launches": launches}
+
+
+def phase_padded_heads(dev: str) -> dict:
+    """Phase 21: the production meshes' padded head layout on plain tensors
+    of the card, at full width (see the module docstring)."""
+    t0 = time.perf_counter()
+    models = {label: _padded_model(label, arch, layers, kernel, dev)
+              for label, arch, layers, kernel in PAD_MODELS}
+    seconds = time.perf_counter() - t0
+    log(f"[pad21] ({gpu_name_and_power()}) phase 21 {seconds:.1f} s")
+    return {"models": models, "seconds": seconds,
+            "launches": {m["kernel"]: m["launches"] for m in models.values()}}
+
+
 def phase_reshard(cfg, dev: str, wd: str) -> dict:
     """Phase 19 (c), inside phase 15: the newest checkpoint through
     reshard_restore onto the "h100" mesh, against launch/train.py's own
@@ -2940,6 +3077,14 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s")
     d20 = dry20["launches_by_kernel"]
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    pad21 = phase_padded_heads(dev)
+    log(f"[pad21] summary {json.dumps(pad21)}")
+    log(f"[slice13] phase 21 {time.perf_counter() - t0:.1f} s; the whole run "
+        f"{time.perf_counter() - t_start:.1f} s")
+    p21 = pad21["launches"]
+
     log(gpu)
     print(json.dumps({"kernels": [{
         "name": "delta_snapshot",
@@ -2972,13 +3117,15 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
         "launches": served["flash_launches"] + rg["flash_launches"] + qwen["flash_launches"]
-        + scout["flash_launches"] + examples["flash_launches"] + d20["flash_attention"],
+        + scout["flash_launches"] + examples["flash_launches"] + d20["flash_attention"]
+        + p21["flash_attention"],
         "launches_by_path": {"serve_stablelm": served["flash_launches"],
                              "serve_recurrentgemma": rg["flash_launches"],
                              "serve_qwen2_moe": qwen["flash_launches"],
                              "llama4_scout_prefill": scout["flash_launches"],
                              "examples": examples["flash_launches"],
-                             "dryrun_h100": d20["flash_attention"]},
+                             "dryrun_h100": d20["flash_attention"],
+                             "padded_heads": p21["flash_attention"]},
         "max_abs_err": max(flash["max_abs_err"], examples["flash_max_abs_err"]),
         "ms": flash["ms"],
         "plain_ms": flash["plain_ms"],
@@ -2992,9 +3139,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:28",
-        "launches": rwkv["rwkv6_launches"] + d20["rwkv6_scan"],
+        "launches": rwkv["rwkv6_launches"] + d20["rwkv6_scan"] + p21["rwkv6_scan"],
         "launches_by_path": {"serve_rwkv6": rwkv["rwkv6_launches"],
-                             "dryrun_h100": d20["rwkv6_scan"]},
+                             "dryrun_h100": d20["rwkv6_scan"],
+                             "padded_heads": p21["rwkv6_scan"]},
         "max_abs_err": rwkv_k["max_abs_err"],
         "ms": rwkv_k["ms"],
         "plain_ms": rwkv_k["plain_ms"],

@@ -11,6 +11,13 @@
 #   for the dims after it (XLA pads such a dim instead; DTensor's views
 #   cannot reshape an uneven shard, as a batch of 1 over "data" would be).
 #   So 60 experts over a 16-way "model" leave "model" to expert_ff.
+# * Heads are the one such dim the port pads as XLA does: a mesh whose
+#   "model" axis does not divide a model's heads (40 or 24 over 16) gets
+#   its parameters padded to whole heads per device (models/padding.py),
+#   so heads_split and heads_merged view an even split as it lies and
+#   refuse one that would cut a head.  The kv heads are not padded (their
+#   specs replicate them where the axis does not divide them): their
+#   heads_split(..., gather=True) gathers such a split.
 # * named_sharding returns (mesh, placements): there is no NamedSharding
 #   object.
 """Logical-axis sharding rules (MaxText-style) for the production meshes.
@@ -189,6 +196,13 @@ def _split(x: torch.Tensor, dim: int) -> int:
     return n
 
 
+def is_dtensor(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a DTensor (placed on a mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def is_sharded(x: torch.Tensor, dim: int) -> bool:
     """Whether ``x`` is a DTensor split along ``dim`` (False for a plain
     tensor)."""
@@ -215,23 +229,37 @@ def _pinned(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(x.device_mesh, x.placements) if isinstance(x, DTensor) else x
 
 
-def heads_split(x: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
-    """(..., n_heads * d_head) -> (..., n_heads, d_head).  A DTensor whose
-    split of the last dim would cut a head is gathered along it first (XLA
-    pads the heads to the split instead); the result keeps its placements
-    in the backward too, so a gradient that comes back split unevenly over
-    the heads is never viewed back."""
-    if n_heads % _split(x, -1):
-        x = gathered(x, -1)
+def _whole_heads(x: torch.Tensor, dim: int, n_heads: int, gather: bool) -> torch.Tensor:
+    """``x`` with its split of ``dim`` (``n_heads`` heads) holding whole
+    heads: a split that would cut a head is gathered where ``gather`` (the
+    kv heads, which are not padded: their specs replicate them where the
+    axis does not divide them), and refused otherwise, since such heads
+    are padded to the split (models/padding.py), as XLA pads them."""
+    split = _split(x, dim)
+    if n_heads % split == 0:
+        return x
+    if gather:
+        return gathered(x, dim)
+    raise ValueError(f"{n_heads} heads split {split} ways would cut a head: pad the heads "
+                     "to the split (models/padding.py pad_params)")
+
+
+def heads_split(x: torch.Tensor, n_heads: int, d_head: int, gather: bool = False
+                ) -> torch.Tensor:
+    """(..., n_heads * d_head) -> (..., n_heads, d_head), each shard of a
+    DTensor holding whole heads (a split that would cut one is gathered if
+    ``gather``, else refused); the result keeps its placements in the
+    backward too, so a gradient that comes back split otherwise over the
+    heads is never viewed back."""
+    x = _whole_heads(x, -1, n_heads, gather)
     return _pinned(x.reshape(*x.shape[:-1], n_heads, d_head))
 
 
 def heads_merged(x: torch.Tensor) -> torch.Tensor:
-    """(..., H, D) -> (..., H * D), the inverse of :func:`heads_split`: an
-    uneven split of the heads is gathered first, and the result keeps its
+    """(..., H, D) -> (..., H * D), the inverse of :func:`heads_split`: a
+    split of the heads must hold whole heads, and the result keeps its
     placements in the backward."""
-    if x.shape[-2] % _split(x, -2):
-        x = gathered(x, -2)
+    x = _whole_heads(x, -2, x.shape[-2], gather=False)
     return _pinned(x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1]))
 
 

@@ -15,16 +15,19 @@
 # * lower_s is the time to place the inputs on the mesh and compile_s the
 #   counted step's wall time (there is no lowering and no compile).
 # * Trees pair with their spec trees by key (_zip_map), never by leaf order.
-# * DTensor ranks each op's candidate strategies here by the cost of their
-#   greedy redistribution plans (_greedy_costs): a placement that merges two
-#   sharded dims (a _StridedShard, as every attention product over batch x
-#   heads makes) forces its min-cost graph search, which over a three-axis
-#   mesh takes minutes per op when run for every candidate.  So on the
-#   three-axis meshes ("multi", "tiny-multi") the ranking, and with it the
-#   strategy DTensor picks, is the greedy one's: their counts are less
-#   tight than the two-axis meshes' (stablelm-1.6b train_4k on tiny-multi
-#   counts about twice the FLOPs per device of tiny).  The redistribution
-#   DTensor then performs is planned by its own rule.
+# * Heads that the "model" axis does not divide (40 over 16 for
+#   Llama-4-Scout and RWKV6-3B, 24 for musicgen-medium) are padded to the
+#   split in the placed parameters and caches (models/padding.py): the
+#   abstract trees are built for the padded head count, so each device
+#   holds whole heads (3 of 48, 2 of 32), as XLA pads them in JAX's step.
+# * A three-axis mesh whose rules use "pod" only as ("pod", "data") (the
+#   default rules' batch and fsdp) runs the step on a two-axis view of the
+#   same ranks, its "data" the flattened (pod, data) (_step_mesh): the
+#   same shards, and DTensor's own ranking of its strategies, which over
+#   three axes takes minutes per op, is as quick as on "single".  The
+#   counter still books each collective to the dims of the named mesh
+#   ("pod+data" for the flattened axis), so the roofline prices the pod
+#   links apart.
 # * A recurrent scan is one op: the model calls the torch.library custom
 #   op of its scan (repro_torch::rwkv6_scan_ref / ::rglru_scan_ref under
 #   impl="reference", with one backward op in a train step), which DTensor
@@ -46,8 +49,9 @@ For each cell this driver:
 
   1. builds the mesh (16x16 single pod / 2x16x16 multi-pod / the CI-sized
      tiny meshes, on a fake process group; or "h100", the card);
-  2. resolves the model's logical shard specs against it, replicating any
-     dim a mesh axis does not divide;
+  2. resolves the model's logical shard specs against it, the heads padded
+     to the "model" axis and any other dim a mesh axis does not divide
+     replicated;
   3. runs the step once on DTensors whose local shards are meta tensors — no
      allocation;
   4. records the per-device FLOPs, bytes and collective traffic, the peak of
@@ -60,9 +64,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
-import functools
 import json
 import os
 import time
@@ -107,9 +109,9 @@ def _zip_map(fn, spec_tree, tree, path: str = ""):
 def _resolve_tree(mesh, spec_tree, abstract_tree):
     """Logical specs -> DTensor placements, pruning axes that don't divide.
 
-    Argument shardings must divide the dimension exactly, as JAX's do; dims
-    like batch=1 or head counts not divisible by the TP degree fall back to
-    replication on that dim.
+    Argument shardings must divide the dimension exactly, as JAX's do; a
+    dim like batch=1 that its axes do not divide falls back to replication
+    on that dim (the heads come padded to the "model" axis: _run_step).
     """
     rules = get_rules()
     names = mesh.mesh_dim_names
@@ -154,41 +156,21 @@ def _place(mesh, spec_tree, abstract_tree):
     return _zip_map(leaf, placements, abstract_tree)
 
 
-@contextlib.contextmanager
-def _greedy_costs(mesh):
-    """On a mesh of three or more dims, rank DTensor's candidate strategies
-    by the cost of their greedy plans (the graph search only where the
-    greedy planner fails); the redistribution DTensor then performs keeps
-    its own planner.  Restored on exit."""
-    from torch.distributed.tensor import _collective_utils as CU
-    from torch.distributed.tensor import _redistribute as R
-    from torch.distributed.tensor._ops import utils as OU
+def _step_mesh(mesh):
+    """The mesh the step runs on: ``mesh`` itself, or for ("pod", "data",
+    "model") under rules that name "pod" only in ("pod", "data"), a
+    ("data", "model") mesh over the same ranks whose "data" is the
+    flattened pair (rank p * D * M + d * M + m at (p * D + d, m): the same
+    shards as the two axes give, pod major)."""
+    from torch.distributed.device_mesh import DeviceMesh
 
-    if mesh.ndim < 3 or not hasattr(R, "get_redistribute_planner"):
-        yield
-        return
-    planner_of, cost_of = R._gen_transform_infos, CU.redistribute_cost
-
-    @functools.cache
-    def greedy(src, dst, use_graph_based_transform=None):
-        try:
-            planner = R.get_redistribute_planner(src.mesh, src.tensor_meta)
-            return planner.generate_greedy_transform_infos(src, dst)
-        except Exception:  # noqa: BLE001 — the planner's own fallback below
-            return R._gen_transform_infos_non_cached(src, dst, use_graph_based_transform)
-
-    def cost(current, target):
-        R._gen_transform_infos = greedy
-        try:
-            return cost_of(current, target)
-        finally:
-            R._gen_transform_infos = planner_of
-
-    CU.redistribute_cost = OU.redistribute_cost = cost
-    try:
-        yield
-    finally:
-        CU.redistribute_cost = OU.redistribute_cost = cost_of
+    names = tuple(mesh.mesh_dim_names)
+    pairs = [ax for _, ax in get_rules().rules
+             if ax is not None and {"pod", "data"} & set((ax,) if isinstance(ax, str) else ax)]
+    if names != ("pod", "data", "model") or any(ax != ("pod", "data") for ax in pairs):
+        return mesh
+    grid = mesh.mesh.reshape(-1, mesh.shape[-1])
+    return DeviceMesh(mesh.device_type, grid, mesh_dim_names=("data", "model"))
 
 
 def _trip_counts(cfg: ModelConfig, shape: ShapeConfig) -> list:
@@ -206,17 +188,17 @@ def _run_step(cfg: ModelConfig, shape: ShapeConfig, mesh, impl: str, counter: Op
     t0 = time.perf_counter()
     if shape.mode == "train":
         step = make_train_step(cfg, impl=impl)
-        args = (_place(mesh, train_state_specs(cfg, tp), abstract_train_state(cfg)),
+        args = (_place(mesh, train_state_specs(cfg, tp), abstract_train_state(cfg, tp)),
                 _place(mesh, input_spec_names(cfg, shape), input_specs(cfg, shape)))
     elif shape.mode == "prefill":
         step = make_prefill_step(cfg, impl=impl)
-        args = (_place(mesh, param_specs(cfg, tp), abstract_params(cfg)),
+        args = (_place(mesh, param_specs(cfg, tp), abstract_params(cfg, tp)),
                 _place(mesh, input_spec_names(cfg, shape), input_specs(cfg, shape)))
     else:  # decode
         step = make_decode_fn(cfg)
         tok = input_specs(cfg, shape)["token"]
-        args = (_place(mesh, param_specs(cfg, tp), abstract_params(cfg)),
-                _place(mesh, cache_specs(cfg, tp), abstract_cache(cfg, shape)),
+        args = (_place(mesh, param_specs(cfg, tp), abstract_params(cfg, tp)),
+                _place(mesh, cache_specs(cfg, tp), abstract_cache(cfg, shape, tp)),
                 _place(mesh, {"token": ("batch", None)}, {"token": tok})["token"])
     t_place = time.perf_counter() - t0
     with torch.set_grad_enabled(shape.mode == "train"), counter:
@@ -238,6 +220,7 @@ def cell(cfg: ModelConfig, shape: ShapeConfig, mesh, impl: str = "reference") ->
     from torch.distributed.tensor.experimental import implicit_replication
 
     register_op_strategies()
+    step_mesh = _step_mesh(mesh)
     counter = OpCounter(mesh, tensor_device(mesh))
     counter.cost.trip_counts = _trip_counts(cfg, shape)
     if mesh.device_type == "cpu":
@@ -245,8 +228,8 @@ def cell(cfg: ModelConfig, shape: ShapeConfig, mesh, impl: str = "reference") ->
 
         tracker = MemTracker()
         try:
-            with tracker, implicit_replication(), _greedy_costs(mesh):
-                t_place, t_step = _run_step(cfg, shape, mesh, impl, counter)
+            with tracker, implicit_replication():
+                t_place, t_step = _run_step(cfg, shape, step_mesh, impl, counter)
         except Exception as e:
             raise CellError(f"{type(e).__name__}: {e} (in {counter.last_dtensor_op})") from e
         peak = tracker.get_tracker_snapshot("peak")
@@ -256,8 +239,8 @@ def cell(cfg: ModelConfig, shape: ShapeConfig, mesh, impl: str = "reference") ->
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         try:
-            with implicit_replication(), _greedy_costs(mesh):
-                t_place, t_step = _run_step(cfg, shape, mesh, impl, counter)
+            with implicit_replication():
+                t_place, t_step = _run_step(cfg, shape, step_mesh, impl, counter)
         except Exception as e:
             raise CellError(f"{type(e).__name__}: {e} (in {counter.last_dtensor_op})") from e
         mem = {"peak_hbm_bytes": float(torch.cuda.max_memory_allocated() - base)}

@@ -19,7 +19,10 @@
 # * Where JAX gives ShapeDtypeStructs (abstract_*, input_specs), the port
 #   gives tensors on torch's "meta" device: init_params and init_cache run
 #   under a FakeTensorMode (jax.eval_shape's counterpart) and each leaf
-#   becomes an empty meta tensor of its shape and dtype.
+#   becomes an empty meta tensor of its shape and dtype.  abstract_params,
+#   abstract_train_state and abstract_cache take the "model" axis's size
+#   and pad the heads to it (models/padding.py), where XLA pads them in
+#   the compiled step.
 """Step functions shared by the trainer, server, and dry-run.
 
 They are mesh-agnostic; spec trees hold *logical* axis-name tuples
@@ -34,6 +37,7 @@ import torch
 
 from ..distributed.sharding import gathered, with_logical
 from ..models.config import ModelConfig, ShapeConfig
+from ..models.padding import pad_cache, pad_params
 from ..models.transformer import (
     decode_step,
     init_cache,
@@ -66,12 +70,14 @@ def _abstract(build) -> Tree:
     return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), tree)
 
 
-def abstract_params(cfg: ModelConfig) -> Tree:
-    return _abstract(lambda: init_params(cfg, torch.Generator()))
+def abstract_params(cfg: ModelConfig, split: int = 1) -> Tree:
+    """The parameters' abstract tree, the heads padded to ``split`` (the
+    "model" axis they are placed on; models/padding.py)."""
+    return _abstract(lambda: pad_params(cfg, init_params(cfg, torch.Generator()), split))
 
 
-def abstract_train_state(cfg: ModelConfig) -> Tree:
-    params = abstract_params(cfg)
+def abstract_train_state(cfg: ModelConfig, split: int = 1) -> Tree:
+    params = abstract_params(cfg, split)
     opt = _abstract(lambda: adamw_init(params, cfg.moment_dtype))
     return {"params": params, "opt": opt,
             "step": torch.empty((), dtype=torch.int32, device="meta")}
@@ -214,6 +220,7 @@ def make_decode_fn(cfg: ModelConfig):
     return serve_step
 
 
-def abstract_cache(cfg: ModelConfig, shape: ShapeConfig) -> Tree:
-    return _abstract(lambda: init_cache(cfg, shape.global_batch, max_len=shape.seq_len,
-                                        device="cpu"))
+def abstract_cache(cfg: ModelConfig, shape: ShapeConfig, split: int = 1) -> Tree:
+    return _abstract(lambda: pad_cache(cfg, init_cache(cfg, shape.global_batch,
+                                                       max_len=shape.seq_len, device="cpu"),
+                                       split))

@@ -22,6 +22,13 @@
 #   where it lies (on a plain tensor the same bmm as JAX's einsum, the same
 #   bits), and writes a kv_seq-split cache with a masked select, as XLA
 #   partitions its dynamic_update_slice.
+# * The q head count is the weights' (_q_layout): on a mesh whose "model"
+#   axis does not divide the heads, the dry-run places parameters padded
+#   by models/padding.py (XLA pads the same heads inside its step).  The
+#   repeated k and v get a zero head in each padded q slot, so a padded
+#   head's output is exactly 0; decode drops the padded heads before its
+#   products over the cache and puts them back as zeros after, and on a
+#   plain tensor (one device) projects the real heads only.
 """GQA attention: train/prefill (full-sequence) and decode (KV cache) paths.
 
 Supports causal and local-window (RecurrentGemma) masking.  The
@@ -35,9 +42,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
-from ..distributed.sharding import heads_merged, heads_split, is_sharded, with_logical
+from ..distributed.sharding import (gathered, heads_merged, heads_split, is_dtensor, is_sharded,
+                                    with_logical)
 from .config import ModelConfig
 from .layers import _in_dtype, apply_rope, dtype_of, einsum, matmul, normal_init, rope_angles
+from .padding import pad_heads, q_groups, unpad_heads
 
 NEG_INF = -1e30
 
@@ -66,8 +75,10 @@ def attn_specs(cfg: ModelConfig, tp: int = 16) -> Dict:
     }
 
 
-def _split_heads(x: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
-    return heads_split(x, n_heads, d_head)
+def _split_heads(x: torch.Tensor, n_heads: int, d_head: int, kv: bool = False) -> torch.Tensor:
+    """The heads of a q (or, ``kv``, a k or v) projection; the kv heads are
+    never padded, so a split of them that would cut a head is gathered."""
+    return heads_split(x, n_heads, d_head, gather=kv)
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
@@ -76,6 +87,12 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
         return k
     b, s, h, d = k.shape
     return k[:, :, :, None, :].expand(b, s, h, groups, d).reshape(b, s, h * groups, d)
+
+
+def _q_layout(p: Dict, cfg: ModelConfig) -> Tuple[int, int, int]:
+    """The q heads as the weights hold them (the config's, or padded to a
+    mesh split): (groups, real heads per group, heads per group)."""
+    return q_groups(cfg, p["wq"].shape[-1] // cfg.head_dim)
 
 
 def _mask_bias(seq_q: int, seq_k: int, offset: int, window: Optional[int],
@@ -114,18 +131,21 @@ def attention_full(
 ) -> torch.Tensor:
     """Full-sequence causal attention.  x: (B, S, d); positions: (S,)."""
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _split_heads(matmul(x, p["wq"]), hq, dh)
-    k = _split_heads(matmul(x, p["wk"]), hkv, dh)
-    v = _split_heads(matmul(x, p["wv"]), hkv, dh)
+    layout = _q_layout(p, cfg)
+    n_q = layout[0] * layout[2]
+    q = _split_heads(matmul(x, p["wq"]), n_q, dh)
+    k = _split_heads(matmul(x, p["wk"]), hkv, dh, kv=True)
+    v = _split_heads(matmul(x, p["wv"]), hkv, dh, kv=True)
     cos, sin = rope_angles(positions, dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     q = with_logical(q, "batch", None, "heads", None)
     k = with_logical(k, "batch", None, "kv_heads" if hkv % 8 == 0 else None, None)
-    # k and v repeated to q's heads and split as q is (XLA carries q's split
-    # onto them; DTensor would gather q to meet a replicated k)
-    k, v = (with_logical(_repeat_kv(t, hq // hkv), "batch", None, "heads", None)
-            for t in (k, v))
+    # k and v repeated to q's heads (zero heads in q's padded slots) and
+    # split as q is (XLA carries q's split onto them; DTensor would gather q
+    # to meet a replicated k)
+    k, v = (with_logical(pad_heads(_repeat_kv(t, hq // hkv), 2, *layout),
+                         "batch", None, "heads", None) for t in (k, v))
 
     if impl == "kernel":
         from ..kernels.flash_attention.ops import flash_attention
@@ -222,15 +242,25 @@ def attention_decode(
     t mod W; otherwise the cache is absolute-addressed.
     """
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    layout = _q_layout(p, cfg)
     b = x.shape[0]
     length = cache_k.shape[1]
-    q = _split_heads(matmul(x, p["wq"]), hq, dh)
-    k = _split_heads(matmul(x, p["wk"]), hkv, dh)
-    v = _split_heads(matmul(x, p["wv"]), hkv, dh)
+    wq = p["wq"]
+    if layout[1] != layout[2] and not is_dtensor(x):
+        # padded heads on one device: project the real heads only (cuBLAS
+        # splits a product of a few rows by its width, so the padded width
+        # would round otherwise than the unpadded model)
+        wq = unpad_heads(wq, -1, *layout)
+    q = _split_heads(matmul(x, wq), wq.shape[-1] // dh, dh)
+    k = _split_heads(matmul(x, p["wk"]), hkv, dh, kv=True)
+    v = _split_heads(matmul(x, p["wv"]), hkv, dh, kv=True)
     cos, sin = rope_angles(t.reshape(1), dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     q = with_logical(q, "batch", None, "heads", None)
+    if q.shape[2] != hq:
+        # padded heads on a mesh: the products over the cache take the real ones
+        q = unpad_heads(gathered(q, 2), 2, *layout)
 
     slot = (t % length) if window else t
     # dynamic_update_slice clamps the start into range; so does this
@@ -259,5 +289,6 @@ def attention_decode(
     bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
     probs = _softmax(scores.float() + bias[None, None, None, :])
     out = matmul(probs.to(x.dtype), vv.transpose(1, 2)).transpose(1, 2)  # (B, 1, H, D)
-    out = out.reshape(b, 1, hq * dh)
+    out = pad_heads(out, 2, *layout)
+    out = out.reshape(b, 1, out.shape[2] * dh)
     return with_logical(matmul(out, p["wo"]), "batch", None, None), cache_k, cache_v

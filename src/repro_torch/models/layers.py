@@ -63,10 +63,17 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a, b)
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float,
+             width: Optional[int] = None) -> torch.Tensor:
+    """RMSNorm over the last dim; ``width``, where the last dim holds
+    padded zero heads beyond it (models/padding.py), is the real width the
+    sum of squares is divided by."""
     dt = x.dtype
     x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    if width is None or width == x.shape[-1]:
+        var = torch.mean(x * x, dim=-1, keepdim=True)
+    else:
+        var = torch.sum(x * x, dim=-1, keepdim=True) / width
     out = x * torch.rsqrt(var + eps)
     return (out * (1.0 + gamma.float())).to(dt)
 

@@ -23,6 +23,17 @@
 #   x_last), which the JAX prefill recomputes (transformer._rwkv_state_after).
 # * with_logical returns a plain tensor as it is; it constrains only a
 #   DTensor (the dry-run's meshes).
+# * The head count is the weights' (_heads): on a mesh whose "model" axis
+#   does not divide the 40 heads of RWKV6-3B, the dry-run places
+#   parameters padded to 48 by models/padding.py (XLA pads the same heads
+#   inside its step).  A padded head's k and v are 0, so its state stays 0
+#   and its y is 0; the output norm divides by the real width, cfg.d_model.
+#   Decode on a plain tensor (one device) steps the real heads only.
+# * rwkv_decode_step constrains its output to ("batch", None, None), as
+#   attention_decode does (JAX's leaves it to XLA's propagation): without
+#   it DTensor computes every head's projections on every device in the
+#   layers after the first (RWKV6-3B's decode_32k on "multi" counted 5.28
+#   times JAX's dots per device).
 """RWKV-6 "Finch" time-mix block (arXiv:2404.05892), attention-free.
 
 State: one matrix S in R^{dh x dh} per head.  Recurrence per token t:
@@ -45,13 +56,20 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..distributed.sharding import heads_merged, heads_split, with_logical
+from ..distributed.sharding import heads_merged, heads_split, is_dtensor, with_logical
 from .config import ModelConfig
 from .layers import activation_fn, dtype_of, matmul, normal_init, rms_norm
+from .padding import pad_heads, unpad_rwkv
 
 
 def _n_heads(cfg: ModelConfig) -> int:
     return cfg.d_model // cfg.rwkv.head_dim
+
+
+def _heads(p: Dict, cfg: ModelConfig) -> int:
+    """The head count as the weights hold it: the config's, or padded to a
+    mesh split (models/padding.py)."""
+    return p["w_r"].shape[-1] // cfg.rwkv.head_dim
 
 
 def rwkv_params(cfg: ModelConfig, gen: torch.Generator, n: int) -> Dict:
@@ -135,7 +153,7 @@ def rwkv_scan_full(
     """Full-sequence RWKV-6.  x: (B, S, d) -> (B, S, d); with ``return_state``
     also the decode cache's leaves after the sequence, {"S": the scan's final
     state (B, H, dh, dh) f32, "x_last": x[:, -1]}."""
-    H, dh = _n_heads(cfg), cfg.rwkv.head_dim
+    H, dh = _heads(p, cfg), cfg.rwkv.head_dim
     b, s, d = x.shape
     r, k, v, w, g = _projections(p, x, _shift_right(x), cfg)
     r = _head_split(r, H, dh).float()
@@ -158,7 +176,7 @@ def rwkv_scan_full(
         raise ValueError(f"unknown rwkv impl {impl!r}; use 'reference', 'kernel' or 'chunked'")
 
     y = heads_merged(y).to(x.dtype)
-    y = rms_norm(y, p["ln_x"], cfg.norm_eps)     # group-norm stand-in
+    y = rms_norm(y, p["ln_x"], cfg.norm_eps, width=d)     # group-norm stand-in
     y = y * activation_fn("silu")(g)
     out = with_logical(matmul(y, p["w_o"]), "batch", "seq", None)
     return (out, {"S": S, "x_last": x[:, -1]}) if return_state else out
@@ -258,7 +276,15 @@ def rwkv_decode_step(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One token.  x: (B, 1, d); S: (B, H, dh, dh); x_last: (B, d).
     Returns (out, new S, new x_last)."""
-    H, dh = _n_heads(cfg), cfg.rwkv.head_dim
+    H, dh = _heads(p, cfg), cfg.rwkv.head_dim
+    real = _n_heads(cfg)
+    if H != real and not is_dtensor(x):
+        # padded heads on one device: step the real heads only (cuBLAS
+        # splits a product of a few rows by its width, so the padded width
+        # would round otherwise than the unpadded model); the padded
+        # state's heads stay 0
+        out, S_new, x_new = rwkv_decode_step(unpad_rwkv(cfg, p), x, S[:, :real], x_last, cfg)
+        return out, pad_heads(S_new, 1, 1, real, H), x_new
     b, _, d = x.shape
     r, k, v, w, g = _projections(p, x, x_last[:, None, :], cfg)
     rt = _head_split(r, H, dh)[:, 0].float()
@@ -269,6 +295,6 @@ def rwkv_decode_step(
     att = S + p["bonus_u"][None, :, :, None] * kv
     y = torch.einsum("bhk,bhkv->bhv", rt, att)
     S_new = wt[..., :, None] * S + kv
-    y = y.reshape(b, 1, d).to(x.dtype)
-    y = rms_norm(y, p["ln_x"], cfg.norm_eps) * activation_fn("silu")(g)
-    return matmul(y, p["w_o"]), S_new, x[:, 0]
+    y = y.reshape(b, 1, H * dh).to(x.dtype)
+    y = rms_norm(y, p["ln_x"], cfg.norm_eps, width=d) * activation_fn("silu")(g)
+    return with_logical(matmul(y, p["w_o"]), "batch", None, None), S_new, x[:, 0]

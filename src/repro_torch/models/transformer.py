@@ -403,8 +403,8 @@ def prefill(
 
 def _kv_for_cache(cfg: ModelConfig, p: Dict, x: torch.Tensor, positions: torch.Tensor) -> Dict:
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
-    k = _split_heads(matmul(x, p["wk"]), hkv, dh)
-    v = _split_heads(matmul(x, p["wv"]), hkv, dh)
+    k = _split_heads(matmul(x, p["wk"]), hkv, dh, kv=True)
+    v = _split_heads(matmul(x, p["wv"]), hkv, dh, kv=True)
     cos, sin = rope_angles(positions, dh, cfg.rope_theta)
     k = apply_rope(k, cos, sin)
     if cfg.attn_window:

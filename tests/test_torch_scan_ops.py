@@ -318,23 +318,35 @@ def test_gathered_and_is_sharded():
 
 
 def test_head_views_gather_a_split_that_cuts_a_head():
-    """6 heads of 16 over the 4-way "model" axis: the view gathers the last
-    dim first (XLA would pad the heads to 8), and the backward views the
-    gradient back through the same placements; 8 heads stay split; a plain
+    """6 heads of 16 over the 4-way "model" axis: a q view refuses the
+    split (the heads are padded to the split instead, as XLA pads them)
+    and a kv view (gather=True: kv heads are never padded) gathers the last
+    dim first; the 6 heads padded to 8 (models/padding.py) stay split, 2
+    to a shard, their zero heads where pad_heads put them, and the
+    backward views the gradient back through the same placements; a plain
     tensor is reshaped as it is."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import implicit_replication
 
+    from repro_torch.models.padding import pad_heads
+
     mesh = mesh_for_name("tiny")
-    x = _dtensor((4, 8, 96), [Shard(0), Shard(2)], mesh).requires_grad_(True)
+    x = _dtensor((4, 8, 96), [Shard(0), Shard(2)], mesh)
+    with pytest.raises(ValueError, match="6 heads split 4 ways"):
+        sharding.heads_split(x, 6, 16)
+    assert tuple(sharding.heads_split(x, 6, 16, gather=True).placements) == (
+        Shard(0), Replicate())
+    full = torch.arange(4 * 8 * 96, dtype=torch.float32).reshape(4, 8, 96) + 1
+    padded = pad_heads(full, -1, 1, 6, 8)
+    assert tuple(padded.shape) == (4, 8, 128)
+    assert torch.equal(padded[..., :96], full) and not padded[..., 96:].any()
+    x8 = _dtensor((4, 8, 128), [Shard(0), Shard(2)], mesh).requires_grad_(True)
     with implicit_replication():
-        h = sharding.heads_split(x, 6, 16)
-        assert tuple(h.placements) == (Shard(0), Replicate())
+        h = sharding.heads_split(x8, 8, 16)
+        assert tuple(h.placements) == (Shard(0), Shard(2))
         y = sharding.heads_merged(h * 2)
-        (g,) = torch.autograd.grad(y.sum(), x)
-    assert tuple(y.shape) == (4, 8, 96) and tuple(g.placements) == (Shard(0), Shard(2))
-    x8 = _dtensor((4, 8, 128), [Shard(0), Shard(2)], mesh)
-    assert tuple(sharding.heads_split(x8, 8, 16).placements) == (Shard(0), Shard(2))
+        (g,) = torch.autograd.grad(y.sum(), x8)
+    assert tuple(y.shape) == (4, 8, 128) and tuple(g.placements) == (Shard(0), Shard(2))
     plain = torch.arange(96.0).reshape(1, 1, 96)
     assert torch.equal(sharding.heads_split(plain, 6, 16), plain.reshape(1, 1, 6, 16))
     assert torch.equal(sharding.heads_merged(plain.reshape(1, 1, 6, 16)), plain)

@@ -1,7 +1,9 @@
 """Shared runner of the dry-run comparison tests
-(tests/test_torch_dryrun_{moe,recurrent,decode}.py): the same cells run by
-the JAX package's dry-run and by the port's, both at one cut depth (one
-repetition of each layer group), on the tiny mesh (data 2 x model 4).
+(tests/test_torch_dryrun_{moe,recurrent,decode}.py on the tiny mesh, data 2
+x model 4; test_torch_dryrun_multi*.py on tiny-multi, pod 2 x data 2 x
+model 2; test_torch_dryrun_production.py on "single" and "multi"): the
+same cells run by the JAX package's dry-run and by the port's, both at one
+cut depth (one repetition of each layer group) or at full depth.
 
 JAX runs in a subprocess of 8 host devices (DRYRUN_DEVICES=8), with
 ``repro.launch.dryrun.get_arch`` replaced by the cut config, and records
@@ -90,16 +92,19 @@ def _result(started: tuple, timeout: float) -> tuple:
     return json.loads(line[len("RESULT "):]), text
 
 
-def run_pairs(jax_cells, port_groups, timeout: float = 600, cut: bool = True,
-              mesh: str = "tiny"):
-    """The JAX cells in one subprocess and each group of port cells in one
-    of its own, all at once, on ``mesh``, at the cut depth (or at full
-    depth with ``cut=False``).  Returns (JAX's records, the port's
-    records), each keyed "arch:shape"."""
+def start_pairs(jax_cells, port_groups, cut: bool = True, mesh: str = "tiny") -> list:
+    """Start the JAX cells in one subprocess and each group of port cells
+    in one of its own, all at once, on ``mesh``, at the cut depth (or at
+    full depth with ``cut=False``); :func:`finish_pairs` collects them."""
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     jax_env = dict(env, DRYRUN_DEVICES=str(MESH_DEVICES[mesh]), JAX_PLATFORMS="cpu")
     started = [_start(_JAX, jax_cells, jax_env, cut, mesh)]
-    started += [_start(_PORT, group, env, cut, mesh) for group in port_groups]
+    return started + [_start(_PORT, group, env, cut, mesh) for group in port_groups]
+
+
+def finish_pairs(started: list, timeout: float = 600):
+    """(JAX's records, the port's records) of :func:`start_pairs`'
+    subprocesses, each keyed "arch:shape"; every one left is killed."""
     try:
         jax, _ = _result(started[0], timeout)
         port = {}
@@ -115,6 +120,13 @@ def run_pairs(jax_cells, port_groups, timeout: float = 600, cut: bool = True,
     return jax, port
 
 
+def run_pairs(jax_cells, port_groups, timeout: float = 600, cut: bool = True,
+              mesh: str = "tiny"):
+    """:func:`start_pairs` then :func:`finish_pairs`: returns (JAX's
+    records, the port's records), each keyed "arch:shape"."""
+    return finish_pairs(start_pairs(jax_cells, port_groups, cut, mesh), timeout)
+
+
 def flops(rec) -> float:
     return rec["roofline"]["flops_per_device"]
 
@@ -124,8 +136,8 @@ def collective_bytes(rec) -> float:
 
 
 #: each mesh's devices, and the split of its "batch" axes (("pod", "data"))
-MESH_DEVICES = {"tiny": 8, "single": 256, "multi": 512}
-BATCH_SPLIT = {"tiny": 2, "single": 16, "multi": 32}
+MESH_DEVICES = {"tiny": 8, "tiny-multi": 8, "single": 256, "multi": 512}
+BATCH_SPLIT = {"tiny": 2, "tiny-multi": 4, "single": 16, "multi": 32}
 
 
 def ratios(key: str, jax_rec: dict, port_rec: dict) -> dict:
@@ -148,26 +160,34 @@ def ratios(key: str, jax_rec: dict, port_rec: dict) -> dict:
     return out
 
 
-def check_cell(key: str, jax_rec: dict, port_rec: dict) -> dict:
+def check_cell(key: str, jax_rec: dict, port_rec: dict, mesh_gates: bool = False) -> dict:
     """Hold one port cell to JAX's; returns its ratios.
 
     Every cell JAX records ok is ok in the port, with JAX's parameter and
-    model FLOP counts.  A train cell counts more than 6ND per device (eager
-    keeps no remat, JAX's scan does).  A prefill or decode cell's FLOPs per
+    model FLOP counts.  A train cell counts more than 6ND per device (its
+    model FLOPs over its devices: eager keeps no remat, JAX's scan does).  A prefill or decode cell's FLOPs per
     device are within [0.75, 1.25] of JAX's dots (see :func:`ratios`).  A
     decode cell's collective bytes per device are within [0.25, 4] of
-    JAX's."""
+    JAX's.  With ``mesh_gates`` (the three-axis and production meshes) a
+    train cell also counts at most 1.25 times JAX's recorded FLOPs per
+    device, and every cell moves at most 4 times JAX's collective bytes per
+    device, any less allowed (DTensor contracts over an fsdp-split dim
+    where XLA gathers the weight)."""
     assert jax_rec["status"] == "ok", (key, jax_rec.get("error"))
     assert port_rec["status"] == "ok", (key, port_rec.get("error"))
     assert port_rec["param_counts"] == jax_rec["param_counts"], key
     model_flops = port_rec["roofline"]["model_flops"]
     assert model_flops == jax_rec["roofline"]["model_flops"], key
     r = ratios(key, jax_rec, port_rec)
+    if mesh_gates:
+        assert r["collective"] <= 4.0, (key, r)
     if "flops" not in r:
-        assert flops(port_rec) > model_flops / 8, key
+        assert flops(port_rec) > model_flops / port_rec["n_devices"], key
+        if mesh_gates:
+            assert r["flops_vs_record"] <= 1.25, (key, r)
         return r
     assert 0.75 <= r["flops"] <= 1.25, (key, r)
-    if port_rec["mode"] == "decode":
+    if port_rec["mode"] == "decode" and not mesh_gates:
         assert 0.25 <= r["collective"] <= 4.0, (key, r)
     return r
 
@@ -183,11 +203,13 @@ CELLS.append(("stablelm-1.6b", "decode_32k"))
 def main(argv=None) -> None:
     """Print the port / JAX table of every cell (counts only, on this
     machine's CPU), at the cut depth or, with --full, at full depth, on the
-    tiny mesh or another (--mesh single); --port-dir takes the port's
+    tiny mesh or another (--mesh single); --arch takes every shape of the
+    archs it lists instead of the CELLS; --port-dir takes the port's
     records from a full-depth sweep's JSONs
     (``python -m repro_torch.launch.dryrun ... --out DIR``) instead:
 
         PYTHONPATH=src python tests/torch_dryrun_pairs.py [--full] [--mesh M]
+            [--arch A,B] [--port-dir DIR]
     """
     import argparse
     import time
@@ -195,10 +217,14 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--mesh", default="tiny", choices=sorted(MESH_DEVICES))
+    ap.add_argument("--arch")
     ap.add_argument("--port-dir")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
-    cells = CELLS if args.mesh == "tiny" else CELLS[:-1]
+    cells = CELLS if args.mesh.startswith("tiny") else CELLS[:-1]
+    if args.arch:
+        cells = [(a, s) for a in args.arch.split(",")
+                 for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
     groups = [] if args.port_dir else [
         [c for c in cells if c[0] == a] for a in dict.fromkeys(a for a, _ in cells)]
     full = args.full or bool(args.port_dir)
