@@ -1,0 +1,30 @@
+"""Tiny sizes of the benchmark's cells for the CPU tests, and the import
+paths (the repository root and ``src``)."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
+
+from bench import harness  # noqa: E402
+
+SEED = 2**33 + 12345  # more than 32 bits: seeds may be that large
+
+
+def tiny(cell: str):
+    """(config, traffic) of ``cell`` at a size the CPU runs in a second."""
+    w = harness.workload(harness.load_spec(), cell)
+    cfg = harness.load_json(harness.HERE / "configs" / f"{w['config']}.json")
+    tr = harness.load_json(harness.HERE / "traffic" / f"{w['traffic']}.json")
+    cfg["app_args"] = dict(cfg["app_args"], grid=64)
+    cfg["pin_box"] = 8
+    return cfg, tr
+
+
+def run_tiny(cell: str, seconds: float = 2.0, trace: bool = False, seed: int = SEED,
+             control: bool = False):
+    cfg, tr = tiny(cell)
+    return harness.run_cell(cell, seed, seconds, trace, device="cpu", config=cfg, traffic=tr,
+                            control=control)
