@@ -1,4 +1,7 @@
-# Port copy of repro/core/arena.py, unchanged apart from this header; its relative imports resolve inside repro_torch.
+# Port copy of repro/core/arena.py; its relative imports resolve inside
+# repro_torch.  What differs: flush's block mix, the backing file's rewrite
+# and the manifest's each run in a profiler range (core/spans.py:
+# easycrash.arena.mix, easycrash.arena.persist, easycrash.arena.manifest).
 """NVM arena: the persistent image of application data objects.
 
 The arena emulates NVM-as-main-memory in *app-direct* mode (paper §2.3):
@@ -24,6 +27,7 @@ import numpy as np
 
 from .blocks import DEFAULT_BLOCK_BYTES, block_diff_mask, mix_blocks, obj_num_blocks
 from .durable import durable_replace
+from .spans import span
 
 
 @dataclass
@@ -144,7 +148,8 @@ class NVMArena:
         self.stats.flushed_clean_blocks += total - written
         self.stats.flush_ops += 1
         if written:
-            self._store[name] = mix_blocks(cur, live_value, mask, self.block_bytes)
+            with span("arena.mix"):
+                self._store[name] = mix_blocks(cur, live_value, mask, self.block_bytes)
             self._persist_to_backing(name)
         return written
 
@@ -165,28 +170,30 @@ class NVMArena:
     def _persist_to_backing(self, name: str) -> None:
         if not self.backing_dir:
             return
-        path = self._backing_path(name)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            np.save(f, self._store[name])
-            f.flush()
-            os.fsync(f.fileno())
-        durable_replace(tmp, path)
+        with span("arena.persist"):
+            path = self._backing_path(name)
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                np.save(f, self._store[name])
+                f.flush()
+                os.fsync(f.fileno())
+            durable_replace(tmp, path)
 
     def save_manifest(self) -> None:
         if not self.backing_dir:
             return
-        manifest = {
-            "block_bytes": self.block_bytes,
-            "objects": {k: str(v.dtype) for k, v in self._store.items()},
-        }
-        path = os.path.join(self.backing_dir, "manifest.json")
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(manifest, f)
-            f.flush()
-            os.fsync(f.fileno())
-        durable_replace(tmp, path)
+        with span("arena.manifest"):
+            manifest = {
+                "block_bytes": self.block_bytes,
+                "objects": {k: str(v.dtype) for k, v in self._store.items()},
+            }
+            path = os.path.join(self.backing_dir, "manifest.json")
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(manifest, f)
+                f.flush()
+                os.fsync(f.fileno())
+            durable_replace(tmp, path)
 
     @classmethod
     def reattach(cls, backing_dir: str) -> "NVMArena":

@@ -7,6 +7,13 @@
 #   and into arena.flush as before, and the clone becomes the shadow.
 # * ManagerStats also times each flush's parts: mask, device-to-host copy,
 #   arena write.
+# * The flush, the restore and their parts run in profiler ranges
+#   (core/spans.py, named easycrash.*), so a torch.profiler trace shows them
+#   on the kernels' timeline; the timed parts' ranges feed ManagerStats'
+#   seconds.  ManagerStats also counts the blocks the flushes issue
+#   (blocks_issued, beside blocks_written) and times each restore's reads
+#   out of the arena into host memory (restore_read_seconds) and its
+#   host-to-device copies, waited for (restore_h2d_seconds).
 # * restore returns tensors on the device of init_state's tensor leaves and,
 #   in delta mode, seeds the shadows with what it restored.
 # * An async flush of a CUDA leaf runs on a stream of the manager's own (one
@@ -54,8 +61,10 @@ import torch
 
 from ..convert import bf16_bits, host_array, to_tensor
 from .arena import NVMArena
+from .blocks import obj_num_blocks
 from .delta_persist import _byte_tensor, delta_block_mask, persist_mask_for
 from .efficiency import young_interval
+from .spans import span
 
 
 def _cast_like(img: np.ndarray, target: np.ndarray) -> np.ndarray:
@@ -68,17 +77,27 @@ def _cast_like(img: np.ndarray, target: np.ndarray) -> np.ndarray:
     return img.astype(target.dtype)
 
 
-def _tensor_like(img: np.ndarray, target: torch.Tensor) -> Tuple[torch.Tensor, bool]:
-    """An arena image as a tensor of ``target``'s dtype, on its device, and
+def _staged(img: np.ndarray, target: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """An arena image copied into host memory as a tensor that
+    :func:`_to_device` turns into ``target``'s dtype on its device, and
     whether it holds the image's bytes unchanged (no dtype conversion)."""
     if target.dtype == torch.bfloat16:  # the image holds its bits, or is cast to it
         if bf16_bits(img):
-            return to_tensor(img, target.device, torch.bfloat16), True
-        return torch.from_numpy(np.array(img, copy=True)).to(target.device, target.dtype), False
+            return to_tensor(img, "cpu", torch.bfloat16), True
+        return torch.from_numpy(np.array(img, copy=True)), False
     cast = _cast_like(img, torch.empty(0, dtype=target.dtype).numpy())
     same_bytes = cast.dtype == img.dtype or img.dtype.kind == "V"
     # ascontiguousarray would make a 0-d image (a step counter) 1-d
-    return torch.from_numpy(np.array(cast, order="C", copy=True)).to(target.device), same_bytes
+    return torch.from_numpy(np.array(cast, order="C", copy=True)), same_bytes
+
+
+def _to_device(host: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """A staged image on ``target``'s device, in its dtype; a copy to a CUDA
+    device is waited for."""
+    out = host.to(target.device, target.dtype)
+    if out.is_cuda:
+        torch.cuda.current_stream(out.device).synchronize()
+    return out
 
 
 def flatten_state(state: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -140,6 +159,9 @@ class FlushPolicy:
 class ManagerStats:
     flushes_issued: int = 0
     flushes_skipped: int = 0
+    #: blocks of every leaf the flushes covered; blocks_written of them
+    #: were dirty and written
+    blocks_issued: int = 0
     blocks_written: int = 0
     bytes_written: int = 0
     checkpoints_taken: int = 0
@@ -151,6 +173,10 @@ class ManagerStats:
     mask_seconds: float = 0.0
     copy_seconds: float = 0.0
     arena_seconds: float = 0.0
+    #: host seconds spent in restores reading the images out of the arena
+    #: into host memory, and copying them to the device (waited for)
+    restore_read_seconds: float = 0.0
+    restore_h2d_seconds: float = 0.0
 
 
 class EasyCrashManager:
@@ -249,27 +275,27 @@ class EasyCrashManager:
 
     def _flush_now(self, step: int, payload: Mapping[str, Any],
                    ready: Optional[Mapping[torch.device, Any]] = None) -> None:
-        streams = {dev: self._writer_stream(dev, ev) for dev, ev in (ready or {}).items()}
-        for name, arr in payload.items():
-            t0 = time.perf_counter()
-            if isinstance(arr, torch.Tensor):
-                on_stream = (torch.cuda.stream(streams[arr.device]) if arr.device in streams
-                             else contextlib.nullcontext())
-                with on_stream:
-                    mask, host = self._tensor_mask(name, arr)
-            else:
-                mask = persist_mask_for(
-                    self.policy.persist_mode, self.arena.peek(name), arr,
-                    self.arena.block_bytes,
-                )
-                host = arr
-                self.stats.mask_seconds += time.perf_counter() - t0
-            t1 = time.perf_counter()
-            written = self.arena.flush(name, host, dirty_resident_mask=mask)
-            self.stats.arena_seconds += time.perf_counter() - t1
-            self.stats.blocks_written += written
-            self.stats.bytes_written += written * self.arena.block_bytes
-        self.arena.save_manifest()
+        with span("flush"):
+            streams = {dev: self._writer_stream(dev, ev) for dev, ev in (ready or {}).items()}
+            for name, arr in payload.items():
+                if isinstance(arr, torch.Tensor):
+                    on_stream = (torch.cuda.stream(streams[arr.device]) if arr.device in streams
+                                 else contextlib.nullcontext())
+                    with on_stream:
+                        mask, host = self._tensor_mask(name, arr)
+                else:
+                    with span("flush.mask", self.stats, "mask_seconds"):
+                        mask = persist_mask_for(
+                            self.policy.persist_mode, self.arena.peek(name), arr,
+                            self.arena.block_bytes,
+                        )
+                    host = arr
+                with span("arena.flush", self.stats, "arena_seconds"):
+                    written = self.arena.flush(name, host, dirty_resident_mask=mask)
+                self.stats.blocks_issued += obj_num_blocks(host, self.arena.block_bytes)
+                self.stats.blocks_written += written
+                self.stats.bytes_written += written * self.arena.block_bytes
+            self.arena.save_manifest()
         if self.on_flushed is not None and payload:
             self.on_flushed(step, payload, self.arena)
 
@@ -293,21 +319,19 @@ class EasyCrashManager:
             for t in (live, shadow):
                 if t is not None and t.device == live.device:
                     t.record_stream(stream)
-        t0 = time.perf_counter()
         mask = None
         if mode == "delta" and cur is not None and cur.nbytes == nbytes:
-            if shadow is None or shadow.numel() * shadow.element_size() != nbytes:
-                shadow = _byte_tensor(cur).to(live.device)
-            mask = delta_block_mask(shadow, live, self.arena.block_bytes).cpu().numpy()
-        t1 = time.perf_counter()
-        host = self._host_copy(name, live)
-        t2 = time.perf_counter()
+            with span("flush.mask", self.stats, "mask_seconds"):
+                if shadow is None or shadow.numel() * shadow.element_size() != nbytes:
+                    shadow = _byte_tensor(cur).to(live.device)
+                mask = delta_block_mask(shadow, live, self.arena.block_bytes).cpu().numpy()
+        with span("flush.to_host", self.stats, "copy_seconds"):
+            host = self._host_copy(name, live)
         if mask is None:  # auto, full, or a first flush / reallocation: no compare
-            mask = persist_mask_for(mode, cur, host, self.arena.block_bytes)
+            with span("flush.mask", self.stats, "mask_seconds"):
+                mask = persist_mask_for(mode, cur, host, self.arena.block_bytes)
         if mode == "delta":
             self._shadow[name] = live
-        self.stats.mask_seconds += (t1 - t0) + (time.perf_counter() - t2)
-        self.stats.copy_seconds += t2 - t1
         return mask, host
 
     def _host_copy(self, name: str, live: torch.Tensor) -> np.ndarray:
@@ -383,43 +407,47 @@ class EasyCrashManager:
         Returns (state, step, source) with source in
         {"easycrash", "checkpoint", "fresh"}.
         """
-        flat_init = flatten_state(init_state)
-        # --- EasyCrash path: arena image over init state
-        names = set(self.arena.names())
-        if "__step__" in names:
-            merged = dict(flat_init)
-            seeds: Dict[str, torch.Tensor] = {}  # restored tensors holding image bytes
-            for name in names:
-                if name == "__step__" or name.startswith("__chk__/"):
-                    continue
-                if name in merged:
-                    img = self.arena.get(name)
-                    target = merged[name]
-                    if img.shape != tuple(target.shape):
+        with span("restore"):
+            flat_init = flatten_state(init_state)
+            # --- EasyCrash path: arena image over init state
+            names = set(self.arena.names())
+            if "__step__" in names:
+                merged = dict(flat_init)
+                seeds: Dict[str, torch.Tensor] = {}  # restored tensors holding image bytes
+                for name in names:
+                    if name == "__step__" or name.startswith("__chk__/") or name not in merged:
                         continue
-                    if isinstance(target, torch.Tensor):
-                        merged[name], same_bytes = _tensor_like(img, target)
-                        if same_bytes:
-                            seeds[name] = merged[name]
-                    else:
-                        merged[name] = _cast_like(img, target)
-            step = int(self.arena.get("__step__"))
-            candidate = unflatten_state(merged)
-            if verify is None or verify(candidate, step):
-                if self.policy.persist_mode == "delta":
-                    # the next delta flush compares against these on the
-                    # device; clones, since the caller may update in place
-                    self._shadow.update({
-                        k: v.clone() for k, v in seeds.items()
-                        if any(self._match(k, l) for l in self.policy.leaves)
-                    })
-                self.stats.easycrash_restores += 1
-                return candidate, step, "easycrash"
-        # --- checkpoint fallback
-        if self.checkpoint_restore is not None:
-            got = self.checkpoint_restore()
-            if got is not None:
-                step, state = got
-                self.stats.checkpoint_restores += 1
-                return state, step, "checkpoint"
-        return dict(init_state), 0, "fresh"
+                    target = merged[name]
+                    with span("restore.read", self.stats, "restore_read_seconds"):
+                        img = self.arena.get(name)
+                        if img.shape != tuple(target.shape):
+                            continue
+                        if not isinstance(target, torch.Tensor):
+                            merged[name] = _cast_like(img, target)
+                            continue
+                        host, same_bytes = _staged(img, target)
+                    with span("restore.to_device", self.stats, "restore_h2d_seconds"):
+                        merged[name] = _to_device(host, target)
+                    if same_bytes:
+                        seeds[name] = merged[name]
+                step = int(self.arena.get("__step__"))
+                candidate = unflatten_state(merged)
+                if verify is None or verify(candidate, step):
+                    if self.policy.persist_mode == "delta":
+                        # the next delta flush compares against these on the
+                        # device; clones, since the caller may update in place
+                        with span("restore.shadow"):
+                            self._shadow.update({
+                                k: v.clone() for k, v in seeds.items()
+                                if any(self._match(k, l) for l in self.policy.leaves)
+                            })
+                    self.stats.easycrash_restores += 1
+                    return candidate, step, "easycrash"
+            # --- checkpoint fallback
+            if self.checkpoint_restore is not None:
+                got = self.checkpoint_restore()
+                if got is not None:
+                    step, state = got
+                    self.stats.checkpoint_restores += 1
+                    return state, step, "checkpoint"
+            return dict(init_state), 0, "fresh"
