@@ -1,7 +1,16 @@
 # Port copy of repro/core/arena.py; its relative imports resolve inside
-# repro_torch.  What differs: flush's block mix, the backing file's rewrite
-# and the manifest's each run in a profiler range (core/spans.py:
-# easycrash.arena.mix, easycrash.arena.persist, easycrash.arena.manifest).
+# repro_torch.  What differs:
+# * flush and writeback_blocks write the masked blocks into the arena's own
+#   image in place (write_blocks: the dirty block indices, a (blocks,
+#   block_bytes) byte view each side, the partial last block on its own)
+#   instead of building a new image with mix_blocks.  The result is
+#   mix_blocks' byte for byte, and a peek() view now shows later flushes.
+#   So every stored image is the arena's own C-contiguous, writable array:
+#   install and a first flush copy in C order, reattach makes what it loads
+#   so.  WriteStats.inplace_flushes counts the flushes written in place.
+# * flush's block write, the backing file's rewrite and the manifest's each
+#   run in a profiler range (core/spans.py: easycrash.arena.mix,
+#   easycrash.arena.persist, easycrash.arena.manifest).
 """NVM arena: the persistent image of application data objects.
 
 The arena emulates NVM-as-main-memory in *app-direct* mode (paper §2.3):
@@ -25,7 +34,7 @@ from typing import Dict, Iterable, Mapping, Optional
 
 import numpy as np
 
-from .blocks import DEFAULT_BLOCK_BYTES, block_diff_mask, mix_blocks, obj_num_blocks
+from .blocks import DEFAULT_BLOCK_BYTES, block_diff_mask, obj_num_blocks
 from .durable import durable_replace
 from .spans import span
 
@@ -39,6 +48,7 @@ class WriteStats:
     checkpoint_writes: int = 0   # C/R data copies
     flush_ops: int = 0           # number of persistence operations issued
     flushed_clean_blocks: int = 0  # blocks flushed that caused no write
+    inplace_flushes: int = 0     # flushes that wrote blocks into the existing image
 
     @property
     def total(self) -> int:
@@ -53,6 +63,42 @@ class WriteStats:
             "flushed_clean_blocks": self.flushed_clean_blocks,
             "total": self.total,
         }
+
+
+def write_blocks(
+    image: np.ndarray,
+    live: np.ndarray,
+    block_mask: np.ndarray,
+    block_bytes: int = DEFAULT_BLOCK_BYTES,
+) -> None:
+    """Blockwise ``image[b] = live[b]`` where ``block_mask[b]``, in place.
+
+    Leaves ``image`` equal to ``mix_blocks(image, live, block_mask)`` with
+    no whole-image copy: only the masked blocks' bytes move.  ``image`` must
+    be C-contiguous and writable, so that its byte view is itself; ``live``
+    is read once and not kept.  Raises ``mix_blocks``' ``ValueError`` on a
+    shape, dtype or mask-length mismatch.
+    """
+    live = np.asarray(live)
+    if image.shape != live.shape or image.dtype != live.dtype:
+        raise ValueError(f"mix_blocks shape/dtype mismatch: {image.shape}/{image.dtype} vs {live.shape}/{live.dtype}")
+    nb = obj_num_blocks(image, block_bytes)
+    mask = np.asarray(block_mask, dtype=bool)
+    if mask.shape != (nb,):
+        raise ValueError(f"mask must have {nb} blocks, got {mask.shape}")
+    if not (image.flags.c_contiguous and image.flags.writeable):
+        raise ValueError("write_blocks needs a C-contiguous, writable image")
+    if nb == 0:
+        return
+    dst = image.reshape(-1).view(np.uint8)
+    src = np.ascontiguousarray(live).reshape(-1).view(np.uint8)
+    full = dst.size // block_bytes           # blocks of block_bytes bytes
+    idx = np.flatnonzero(mask)
+    body = idx[: np.searchsorted(idx, full)]  # idx is sorted
+    cut = full * block_bytes
+    dst[:cut].reshape(full, block_bytes)[body] = src[:cut].reshape(full, block_bytes)[body]
+    if full < nb and mask[full]:  # the partial last block
+        dst[cut:] = src[cut:]
 
 
 class NVMArena:
@@ -85,6 +131,10 @@ class NVMArena:
         """No-copy view of the current NVM image (delta-mask computation).
 
         Callers must not mutate the result; ``None`` if never persisted.
+        The view is the arena's own array, which later flushes of the same
+        size write in place: it shows them, so read it after the flush you
+        mean, and while an async flush may run, only after the manager's
+        ``barrier()``.  :meth:`get` returns a copy that stays as it is.
         """
         return self._store.get(name)
 
@@ -93,7 +143,7 @@ class NVMArena:
 
     def install(self, name: str, value: np.ndarray, count_writes: bool = False) -> None:
         """Install a full image (initialization / checkpoint restore path)."""
-        value = np.array(value, copy=True)
+        value = np.array(value, copy=True, order="C")
         if count_writes:
             self.stats.checkpoint_writes += obj_num_blocks(value, self.block_bytes)
         self._store[name] = value
@@ -109,7 +159,7 @@ class NVMArena:
         if n == 0:
             return
         self.stats.eviction_writes += n
-        self._store[name] = mix_blocks(cur, new_value, block_mask, self.block_bytes)
+        write_blocks(cur, new_value, block_mask, self.block_bytes)
 
     def flush(
         self,
@@ -126,6 +176,12 @@ class NVMArena:
         kernel's behaviour, which is a superset of "dirty and resident"
         (an evicted-then-clean block diffs as unchanged).
         Returns the number of blocks actually written.
+
+        A first flush, or one whose image changed byte size, copies the
+        whole of ``live_value`` (in C order).  Otherwise the written blocks
+        go into the existing image in place (:func:`write_blocks`), which
+        stays the same array; ``live_value`` is read, never kept, so the
+        caller may reuse its buffer.
         """
         live_value = np.asarray(live_value)
         cur = self._store.get(name)
@@ -134,7 +190,7 @@ class NVMArena:
         if cur is None:
             # first flush: everything is logically dirty
             nb = obj_num_blocks(live_value, self.block_bytes)
-            self._store[name] = np.array(live_value, copy=True)
+            self._store[name] = np.array(live_value, copy=True, order="C")
             self.stats.flush_writes += nb
             self.stats.flush_ops += 1
             self._persist_to_backing(name)
@@ -149,7 +205,8 @@ class NVMArena:
         self.stats.flush_ops += 1
         if written:
             with span("arena.mix"):
-                self._store[name] = mix_blocks(cur, live_value, mask, self.block_bytes)
+                write_blocks(cur, live_value, mask, self.block_bytes)
+            self.stats.inplace_flushes += 1
             self._persist_to_backing(name)
         return written
 
@@ -214,5 +271,6 @@ class NVMArena:
                     arr = arr.view(want)
                 else:
                     arr = arr.astype(want)
-            arena._store[name] = arr
+            # later flushes write into it in place
+            arena._store[name] = np.require(arr, requirements="CW")
         return arena

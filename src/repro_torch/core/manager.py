@@ -323,7 +323,8 @@ class EasyCrashManager:
         if mode == "delta" and cur is not None and cur.nbytes == nbytes:
             with span("flush.mask", self.stats, "mask_seconds"):
                 if shadow is None or shadow.numel() * shadow.element_size() != nbytes:
-                    shadow = _byte_tensor(cur).to(live.device)
+                    # a copy on the CPU too: the arena writes its image in place
+                    shadow = _byte_tensor(cur).to(live.device, copy=True)
                 mask = delta_block_mask(shadow, live, self.arena.block_bytes).cpu().numpy()
         with span("flush.to_host", self.stats, "copy_seconds"):
             host = self._host_copy(name, live)

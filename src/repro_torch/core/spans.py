@@ -12,7 +12,9 @@ The ranges (children nest in their parents):
 
 * ``flush`` ⊃ ``flush.mask`` (``mask_seconds``), ``flush.to_host``
   (``copy_seconds``), ``arena.flush`` (``arena_seconds``) ⊃ ``arena.mix``,
-  ``arena.persist``; then ``arena.manifest``;
+  ``arena.persist``; then ``arena.manifest``.  ``arena.mix`` is the write
+  of a flush's dirty blocks into the arena's image in place
+  (``arena.write_blocks``); a first flush copies the whole image outside it;
 * ``restore`` ⊃ ``restore.read`` (``restore_read_seconds``),
   ``restore.to_device`` (``restore_h2d_seconds``), ``restore.shadow``.
 
