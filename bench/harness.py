@@ -3,9 +3,11 @@ the window, check the output, read the metrics and compose the result.
 
 A runner (``runners/<name>.py``, named by the configuration) provides
 ``setup(config, traffic, seed, device)``, ``window(session, seconds,
-tracer)``, ``after_window(session, rec)`` and ``check(session, rec,
-limits)``.  A metric is ``metrics/<name>.py`` with ``read(rec)``, which
-returns ``None`` where it finds nothing to read.
+tracer)``, ``after_window(session, rec)``, ``check(session, rec, limits)``,
+``control(session, rec)`` (the control's readings, ``control.py``) and
+``tiny(config, traffic) -> (config, traffic)``, the cell at a size the CPU
+tests run in a second.  A metric is ``metrics/<name>.py`` with
+``read(rec)``, which returns ``None`` where it finds nothing to read.
 """
 from __future__ import annotations
 

@@ -179,3 +179,9 @@ def control(s, rec: Dict) -> Dict[str, float]:
     """The control's reading: the reference in bfloat16 in the program's place."""
     ref = importlib.import_module(f"bench.reference.{s.config['reference']}")
     return ref.compare(s.config, s.inputs, s.step, s.final, dtype=torch.bfloat16, memo=s.memo)
+
+
+def tiny(config: Dict, traffic: Dict):
+    """(config, traffic) at a size the CPU tests run in a second: a 64 x 64
+    plate, its pins in an 8 x 8 box."""
+    return dict(config, app_args=dict(config["app_args"], grid=64), pin_box=8), traffic

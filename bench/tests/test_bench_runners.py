@@ -22,8 +22,9 @@ def test_tiny_run_is_correct_and_reports_its_metrics(cell):
 def test_tiny_traced_run_reads_host_metrics(cell):
     out = run_tiny(cell, 3.0, trace=True)
     assert out["correct"], out["checks"]
-    want = {m["name"] for m in harness.cell_metrics(harness.load_spec(), cell, True)}
-    host = {n for n in want if not n.startswith(("device_idle", "delta_snapshot_roofline"))}
+    per_layer = harness.cell_metrics(harness.load_spec(), cell, True)
+    want = {m["name"] for m in per_layer}
+    host = {m["name"] for m in per_layer if m["source"] != "device_trace"}
     assert host <= set(out["metrics"]) <= want
     assert {"busy_s", "window_s"} <= set(out["device"]) and "breakdown" in out
 
