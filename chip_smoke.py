@@ -177,6 +177,20 @@ Phases, in order; any failure ends the run with a nonzero exit:
    decodes 8 greedy steps and the tokens are equal; every padded head's
    output before the output projection (and RWKV's padded state after the
    steps) is exactly 0; the kernels' launches are counted and asserted.
+22. Granite-4.0-H-Micro: (a) ``ssm_update`` against its plain version at
+   the decode cell's shape (32 sessions x 64 heads of 64 x 128 float32
+   states) and four ragged ones (state within 1e-5, output within 1e-4),
+   then timed at that shape beside its byte bound and the plain version;
+   (b) the server at full width, as phase 6 runs StableLM's (4 prompts of
+   1024 tokens, 64 greedy steps flushed every 16, a failure injected at 32
+   and resumed; every flush's images against the live bytes: the Mamba-2
+   states go whole into the arena's image, the K/V cache's dirty blocks
+   gathered on the card), with the launches of ``ssm_update``,
+   ``flash_attention`` and ``delta_snapshot`` zeroed before it and held to
+   one a Mamba-2 layer and step, one an attention layer and prefill, one a
+   tensor leaf and delta flush.
+
+``python3 chip_smoke.py --only granite`` runs phases 1 and 22 alone.
 
 Every campaign's phase A goes through the apps' lane drivers; a driver that
 raises and falls back to the host loop fails the run.
@@ -237,6 +251,8 @@ from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_reference  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_reference  # noqa: E402
+from repro_torch.kernels.ssm_update import ssm_update  # noqa: E402
+from repro_torch.kernels.ssm_update.ref import ssm_update_reference  # noqa: E402
 from repro_torch.checkpoint import load_pytree, system_config_from_measurement  # noqa: E402
 from repro_torch.checkpoint import CheckpointConfig, CheckpointManager, reshard_restore  # noqa: E402
 from repro_torch.checkpoint.serialization import flatten_tree  # noqa: E402
@@ -406,6 +422,12 @@ PAD_SPLIT = 16
 PAD_MODELS = (("scout", SCOUT_ARCH, SCOUT_LAYERS, "flash_attention"),
               ("rwkv6", RWKV_ARCH, 4, "rwkv6_scan"))
 PAD_DECODE_STEPS, PAD_F32_TOL = 8, 1e-5
+# phase 22: Granite-4.0-H-Micro; ssm_update's shapes as (sessions, heads, P,
+# N, groups), the decode cell's first
+GRANITE_ARCH = "granite-4.0-h-micro"
+SSM_CASES = ((32, 64, 64, 128, 1), (3, 6, 10, 20, 2), (2, 4, 33, 256, 4), (1, 2, 8, 512, 1),
+             (5, 3, 64, 4, 3))
+SSM_STATE_TOL, SSM_OUT_TOL = 1e-5, 1e-4
 
 
 def log(msg: str) -> None:
@@ -449,7 +471,8 @@ def phase_environment() -> str:
     log(f"[env] torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    paths = _build.build("delta_snapshot", "flash_attention", "rwkv6_scan", "rglru_scan")
+    paths = _build.build("delta_snapshot", "flash_attention", "rwkv6_scan", "rglru_scan",
+                         "ssm_update")
     log(f"[env] built {', '.join(os.path.relpath(str(p), ROOT) for p in paths.values())} "
         f"in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.BUILD_LOGS.items():
@@ -1189,7 +1212,7 @@ def _profile_decode(cfg, params, prompts, dev: str, steps: int = 8, name: str = 
     del logits, pcache
 
     def one():
-        box["token"], box["cache"] = step_fn(params, box["cache"], box["token"])
+        box["token"], box["cache"], _ = step_fn(params, box["cache"], box["token"])
 
     one()  # warm-up
     out = _kernel_profile(one, steps)
@@ -1240,9 +1263,13 @@ def scan_ptxas(name: str) -> dict:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '\S*?(rwkv6_scan_kernel|rglru_scan_ring|"
                       r"rglru_scan_direct)I(f|13__nv_bfloat16)E?(?:Li(\d+)E)?", line)
+        vec = re.search(r"Compiling entry function '\S*?ssm_update_kernelILi(\d+)E", line)
         if m:
             kernel, t, d = m.groups()
             key = f"{kernel} {'f32' if t == 'f' else 'bf16'}" + (f" D={d}" if d else "")
+            out[key] = {}
+        elif vec:
+            key = f"ssm_update_kernel kVec={vec.group(1)}"
             out[key] = {}
         elif key and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
@@ -1414,7 +1441,7 @@ def _greedy(cfg, params, logits, pcache, steps: int, split: int = 1, into=None):
     step_fn = make_decode_fn(cfg)
     tokens = [logits.argmax(dim=-1).to(torch.int32)[:, None]]
     for _ in range(steps):
-        token, cache = step_fn(params, cache, tokens[-1])
+        token, cache, _ = step_fn(params, cache, tokens[-1])
         tokens.append(token)
     if into is not None:
         into["cache"] = cache
@@ -2978,7 +3005,107 @@ def phase_reshard(cfg, dev: str, wd: str) -> dict:
     return out
 
 
+# ------------------------------------------------- 22. Granite-4.0-H-Micro
+def ssm_bound_ms(b: int, h: int, p: int, n: int, g: int) -> float:
+    """Least time of one ``ssm_update``: the float32 state read and written
+    once, x and y, dt, A and D, B and C, at the device-memory rate."""
+    return 4 * (2 * b * h * p * n + 2 * b * h * p + b * h + 2 * h + 2 * b * g * n) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def _ssm_inputs(gen, b: int, h: int, p: int, n: int, g: int) -> tuple:
+    """A state of a decode's scale and one token's inputs: (h, x, dt, A, B,
+    C, D), A and dt as Mamba-2's initialisation draws them."""
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+
+    return (r(b, h, p, n) * 0.1, r(b, h, p), F.softplus(r(b, h) - 4),
+            -(1 + 15 * torch.rand(h, generator=gen, device=gen.device)), r(b, g, n),
+            r(b, g, n), r(h))
+
+
+def phase_ssm_update_kernel(dev: str) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(22)
+    err_h = err_y = 0.0
+    for shape in SSM_CASES:
+        h, x, dt, A, B, C, D = _ssm_inputs(gen, *shape)
+        want_h = h.clone()
+        want_y = ssm_update_reference(want_h, x, dt, A, B, C, D)
+        before = ssm_update.launches
+        y = ssm_update(h, x, dt, A, B, C, D)
+        torch.cuda.synchronize()
+        if ssm_update.launches != before + 1:
+            raise AssertionError(f"ssm_update {shape}: the call did not count one launch")
+        err_h = max(err_h, _check_close(f"ssm_update state {shape}", h, want_h, SSM_STATE_TOL))
+        err_y = max(err_y, _check_close(f"ssm_update output {shape}", y, want_y, SSM_OUT_TOL))
+    log(f"[ssm] ssm_update equals its plain version in {len(SSM_CASES)} shapes: max |diff| "
+        f"state {err_h:.3e} (tolerance {SSM_STATE_TOL}), output {err_y:.3e} ({SSM_OUT_TOL})")
+    ptxas = _check_ptxas("ssm_update")
+    h, x, dt, A, B, C, D = _ssm_inputs(gen, *SSM_CASES[0])
+    ms = cuda_ms(lambda: ssm_update(h, x, dt, A, B, C, D), reps=200, warmup=5)
+    plain_ms = cuda_ms(lambda: ssm_update_reference(h, x, dt, A, B, C, D), reps=20)
+    bound = ssm_bound_ms(*SSM_CASES[0])
+    log(f"[ssm] ssm_update at (B, H, P, N, G) = {SSM_CASES[0]} f32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes; {bound / ms:.1%} of the bound)")
+    del h, x, dt, A, B, C, D
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "max_abs_err": max(err_h, err_y), "ptxas": ptxas}
+
+
+def phase_serve_granite(dev: str) -> dict:
+    cfg = get_arch(GRANITE_ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    prompts = serve.make_prompts(cfg, SERVE_PROMPTS, SERVE_PROMPT_LEN, dev)
+    kinds = [kind for pattern, n in cfg.groups for kind in pattern * n]
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+    dirty_block_mask.launches = flash_attention.launches = ssm_update.launches = 0
+    runs = _serve_and_resume("granite", GRANITE_ARCH, params, prompts)
+    launches = {"ssm_update": ssm_update.launches, "flash_attention": flash_attention.launches,
+                "delta_snapshot": dirty_block_mask.launches}
+    # decode steps: 64 uninterrupted, 32 before the crash, 32 resumed; two prefills
+    want = {"ssm_update": n_mamba * (SERVE_STEPS + SERVE_CRASH_AT + SERVE_STEPS - SERVE_CRASH_AT),
+            "flash_attention": 2 * n_attn}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"granite: {name} launched {launches[name]} times, expected {n}")
+    _check_delta_launches("granite", cfg, launches["delta_snapshot"])
+    del params
+    torch.cuda.empty_cache()
+    return _serve_summary("granite", runs, {"launches": launches, "mamba_layers": n_mamba,
+                                            "attention_layers": n_attn})
+
+
+def _ssm_entry(kern: dict, granite: dict) -> dict:
+    return {
+        "name": "ssm_update",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_update.cu",
+        "replaces": None,
+        "launches": granite["launches"]["ssm_update"],
+        "launches_by_path": {"serve_granite": granite["launches"]["ssm_update"]},
+        "max_abs_err": kern["max_abs_err"],
+        "ms": kern["ms"],
+        "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": kern["bound_by"],
+        "library_ms": None,
+        "ptxas": kern["ptxas"],
+    }
+
+
+def _ok_line() -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Drive the port's main path on one NVIDIA card.")
+    ap.add_argument("--only", choices=("granite",), help="run phases 1 and 22 alone")
+    only = ap.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 2
@@ -2987,6 +3114,13 @@ def main() -> int:
     warnings.filterwarnings("error", message=".*advance_lanes raised", category=RuntimeWarning)
     t_start = time.perf_counter()
     gpu = phase_environment()
+    if only == "granite":
+        ssm_k = phase_ssm_update_kernel(dev)
+        granite = phase_serve_granite(dev)
+        log(gpu)
+        print(json.dumps({"kernels": [_ssm_entry(ssm_k, granite)]}), flush=True)
+        print(_ok_line(), flush=True)
+        return 0
     max_err = check_kernel(dev)
     kern = time_kernel(dev)
 
@@ -3085,6 +3219,13 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s")
     p21 = pad21["launches"]
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ssm_k = phase_ssm_update_kernel(dev)
+    granite = phase_serve_granite(dev)
+    log(f"[granite] phase 22 {time.perf_counter() - t0:.1f} s; the whole run "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     log(gpu)
     print(json.dumps({"kernels": [{
         "name": "delta_snapshot",
@@ -3167,12 +3308,8 @@ def main() -> int:
         "library_ms": None,
         "exact": rglru_k["exact"],
         "ptxas": rglru_k["ptxas"],
-    }]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
+    }, _ssm_entry(ssm_k, granite)]}), flush=True)
+    print(_ok_line(), flush=True)
     return 0
 
 

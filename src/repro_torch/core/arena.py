@@ -8,6 +8,13 @@
 #   So every stored image is the arena's own C-contiguous, writable array:
 #   install and a first flush copy in C order, reattach makes what it loads
 #   so.  WriteStats.inplace_flushes counts the flushes written in place.
+#   With adopt, a first flush keeps the caller's buffer as the image (the
+#   manager's page-locked copy of a device leaf) instead of copying it.
+# * A delta flush can come without a host copy of the whole leaf:
+#   flush_blocks takes the dirty blocks gathered on the device with their
+#   indices, rewrite lets the caller write every block of the image in
+#   place (a device-to-host copy straight into it).  Both are counted as
+#   flush counts its writes.
 # * flush's block write, the backing file's rewrite and the manifest's each
 #   run in a profiler range (core/spans.py: easycrash.arena.mix,
 #   easycrash.arena.persist, easycrash.arena.manifest).
@@ -30,7 +37,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, Mapping, Optional
+from typing import Callable, Dict, Iterable, Mapping, Optional
 
 import numpy as np
 
@@ -166,6 +173,7 @@ class NVMArena:
         name: str,
         live_value: np.ndarray,
         dirty_resident_mask: Optional[np.ndarray] = None,
+        adopt: bool = False,
     ) -> int:
         """EasyCrash persistence operation (CLWB semantics).
 
@@ -178,10 +186,12 @@ class NVMArena:
         Returns the number of blocks actually written.
 
         A first flush, or one whose image changed byte size, copies the
-        whole of ``live_value`` (in C order).  Otherwise the written blocks
-        go into the existing image in place (:func:`write_blocks`), which
-        stays the same array; ``live_value`` is read, never kept, so the
-        caller may reuse its buffer.
+        whole of ``live_value`` (in C order); with ``adopt`` the caller hands
+        ``live_value`` over and, if C-contiguous and writable, it becomes the
+        image itself.  Otherwise the written blocks go into the existing
+        image in place (:func:`write_blocks`), which stays the same array;
+        ``live_value`` is read, never kept, so the caller may reuse its
+        buffer.
         """
         live_value = np.asarray(live_value)
         cur = self._store.get(name)
@@ -190,7 +200,8 @@ class NVMArena:
         if cur is None:
             # first flush: everything is logically dirty
             nb = obj_num_blocks(live_value, self.block_bytes)
-            self._store[name] = np.array(live_value, copy=True, order="C")
+            keep = adopt and live_value.flags.c_contiguous and live_value.flags.writeable
+            self._store[name] = live_value if keep else np.array(live_value, copy=True, order="C")
             self.stats.flush_writes += nb
             self.stats.flush_ops += 1
             self._persist_to_backing(name)
@@ -199,13 +210,53 @@ class NVMArena:
             dirty_resident_mask = block_diff_mask(cur, live_value, self.block_bytes)
         mask = np.asarray(dirty_resident_mask, dtype=bool)
         written = int(np.count_nonzero(mask))
-        total = mask.size
+        return self._written(name, written, mask.size,
+                             lambda: write_blocks(cur, live_value, mask, self.block_bytes))
+
+    def flush_blocks(self, name: str, index: np.ndarray, blocks: np.ndarray) -> int:
+        """A flush of an existing image given as its dirty blocks: block
+        ``index[i]`` (ascending) becomes row ``i`` of ``blocks``, uint8
+        ``(len(index), block_bytes)``; a partial last block takes the head
+        of its row.  Counted as :meth:`flush` counts a mask with those
+        blocks dirty.  Returns the number of blocks written."""
+        cur = self._store[name]
+        bb = self.block_bytes
+        index = np.asarray(index, dtype=np.int64)
+        blocks = np.asarray(blocks, dtype=np.uint8)
+        total = obj_num_blocks(cur, bb)
+        if blocks.shape != (index.size, bb) or (index.size and not 0 <= index[0] <= index[-1] < total):
+            raise ValueError(f"{index.size} block indices in [0, {total}) and their "
+                             f"({index.size}, {bb}) rows expected, got rows {blocks.shape}")
+
+        def write() -> None:
+            dst = cur.reshape(-1).view(np.uint8)
+            full = dst.size // bb
+            body = int(np.searchsorted(index, full))
+            cut = full * bb
+            dst[:cut].reshape(full, bb)[index[:body]] = blocks[:body]
+            if body < index.size:  # the partial last block
+                dst[cut:] = blocks[body, : dst.size - cut]
+
+        return self._written(name, index.size, total, write)
+
+    def rewrite(self, name: str, fill: Callable[[np.ndarray], None]) -> int:
+        """A flush of an existing image with every block dirty, written in
+        place by ``fill(image)`` (say, a device leaf's copy straight into
+        the image).  Counted as :meth:`flush` counts it.  Returns the number
+        of blocks written."""
+        cur = self._store[name]
+        total = obj_num_blocks(cur, self.block_bytes)
+        return self._written(name, total, total, lambda: fill(cur))
+
+    def _written(self, name: str, written: int, total: int, write: Callable[[], None]) -> int:
+        """Run a flush's in-place ``write`` of ``written`` of the image's
+        ``total`` blocks, and count it."""
         self.stats.flush_writes += written
         self.stats.flushed_clean_blocks += total - written
         self.stats.flush_ops += 1
         if written:
             with span("arena.mix"):
-                write_blocks(cur, live_value, mask, self.block_bytes)
+                write()
             self.stats.inplace_flushes += 1
             self._persist_to_backing(name)
         return written

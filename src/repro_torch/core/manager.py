@@ -3,8 +3,14 @@
 #   tensor leaf on its own device.
 # * In persist_mode="delta" a tensor leaf's mask is computed on its device
 #   (the delta_snapshot CUDA kernel on the card) against a shadow of the last
-#   image this manager flushed for that name; the leaf then goes to the host
-#   and into arena.flush as before, and the clone becomes the shadow.
+#   image this manager flushed for that name, and the clone becomes the
+#   shadow.  For a leaf on the card only what the mask asks for leaves it:
+#   a leaf with every block dirty is copied straight into the arena's image
+#   (arena.rewrite), else its dirty blocks are gathered on the card and go
+#   to the host with their indices (arena.flush_blocks).  A first flush
+#   goes to the host whole, and the arena keeps the page-locked copy as its
+#   image, so a later whole-leaf copy lands in it directly.  A CPU leaf goes
+#   to arena.flush with its mask, as before.
 # * ManagerStats also times each flush's parts: mask, device-to-host copy,
 #   arena write.
 # * The flush, the restore and their parts run in profiler ranges
@@ -20,8 +26,9 @@
 #   per device), which first waits for an event recorded on the caller's
 #   stream after the clones: the mask kernel and the device-to-host copy
 #   then overlap the steps that follow instead of queueing among them.  A
-#   synchronous flush runs on the caller's stream.  A CUDA leaf reaches the
-#   host through a page-locked buffer the manager keeps per leaf.
+#   synchronous flush runs on the caller's stream.  A CUDA leaf's whole
+#   copy reaches the host through a page-locked buffer the manager keeps per
+#   leaf until the arena keeps it.
 # * on_flushed(step, payload, arena), if given, runs after each flush has
 #   landed in the arena (on the writer thread for an async flush), with the
 #   flushed leaves as the flush cloned them.
@@ -61,7 +68,7 @@ import torch
 
 from ..convert import bf16_bits, host_array, to_tensor
 from .arena import NVMArena
-from .blocks import obj_num_blocks
+from .blocks import num_blocks
 from .delta_persist import _byte_tensor, delta_block_mask, persist_mask_for
 from .efficiency import young_interval
 from .spans import span
@@ -98,6 +105,34 @@ def _to_device(host: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     if out.is_cuda:
         torch.cuda.current_stream(out.device).synchronize()
     return out
+
+
+def _off_host(t: torch.Tensor) -> bool:
+    """Whether a tensor lives off the host, so that a delta flush moves
+    only what its mask asks for across to it."""
+    return t.device.type != "cpu"
+
+
+def _host_dtype(t: torch.Tensor) -> np.dtype:
+    """The numpy dtype of a tensor's bytes on the host (int16 for bfloat16,
+    as :func:`host_array` gives them)."""
+    return torch.empty(0, dtype=torch.int16 if t.dtype == torch.bfloat16 else t.dtype).numpy().dtype
+
+
+def _gathered(src: torch.Tensor, index: torch.Tensor, block_bytes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The blocks ``index`` (ascending) of the flat byte tensor ``src``,
+    gathered on its device and copied to the host, as ``arena.flush_blocks``
+    takes them: the indices (int64) and a ``(len(index), block_bytes)``
+    uint8 row each, a partial last block zero-padded."""
+    full = src.numel() // block_bytes
+    rows = src[: full * block_bytes].view(full, block_bytes)
+    if index.numel() and src.numel() % block_bytes and int(index[-1]) == full:
+        tail = src.new_zeros((1, block_bytes))
+        tail[0, : src.numel() - full * block_bytes] = src[full * block_bytes:]
+        rows = torch.cat([rows.index_select(0, index[:-1]), tail])
+    else:
+        rows = rows.index_select(0, index)
+    return index.cpu().numpy(), rows.cpu().numpy()
 
 
 def flatten_state(state: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -167,9 +202,10 @@ class ManagerStats:
     checkpoints_taken: int = 0
     easycrash_restores: int = 0
     checkpoint_restores: int = 0
-    #: host seconds spent in flushes on the mask (for a device leaf: its
-    #: kernel and the mask's copy to the host), on the leaf's device-to-host
-    #: copy, and in arena writes
+    #: host seconds spent in flushes on the mask (for a device leaf in delta
+    #: mode: its kernel and its dirty count and indices), on the leaf's
+    #: device-to-host copy (its dirty blocks in delta mode), and in arena
+    #: writes (with a delta leaf's whole-leaf copy into the image)
     mask_seconds: float = 0.0
     copy_seconds: float = 0.0
     arena_seconds: float = 0.0
@@ -282,34 +318,43 @@ class EasyCrashManager:
                     on_stream = (torch.cuda.stream(streams[arr.device]) if arr.device in streams
                                  else contextlib.nullcontext())
                     with on_stream:
-                        mask, host = self._tensor_mask(name, arr)
+                        written = self._flush_tensor(name, arr)
                 else:
                     with span("flush.mask", self.stats, "mask_seconds"):
                         mask = persist_mask_for(
                             self.policy.persist_mode, self.arena.peek(name), arr,
                             self.arena.block_bytes,
                         )
-                    host = arr
-                with span("arena.flush", self.stats, "arena_seconds"):
-                    written = self.arena.flush(name, host, dirty_resident_mask=mask)
-                self.stats.blocks_issued += obj_num_blocks(host, self.arena.block_bytes)
+                    with span("arena.flush", self.stats, "arena_seconds"):
+                        written = self.arena.flush(name, arr, dirty_resident_mask=mask)
+                nbytes = arr.numel() * arr.element_size() if isinstance(arr, torch.Tensor) else arr.nbytes
+                self.stats.blocks_issued += num_blocks(nbytes, self.arena.block_bytes)
                 self.stats.blocks_written += written
                 self.stats.bytes_written += written * self.arena.block_bytes
             self.arena.save_manifest()
         if self.on_flushed is not None and payload:
             self.on_flushed(step, payload, self.arena)
 
-    def _tensor_mask(self, name: str, live: torch.Tensor) -> Tuple[Optional[np.ndarray], np.ndarray]:
-        """Flush mask and host copy of a tensor leaf.
+    def _flush_tensor(self, name: str, live: torch.Tensor) -> int:
+        """Flush a tensor leaf into the arena; returns the blocks written.
 
-        In delta mode the mask is computed on the leaf's device against the
-        shadow of the last image this manager flushed or restored.  That is
-        exact: every flush leaves the arena image equal to the flushed bytes.
-        A manager with no shadow of the right size (a fresh one over a used
-        arena) copies the arena image to the device first; a CUDA leaf's mask
-        comes from the kernel either way.
+        In delta mode, once the arena holds an image of the leaf's size, the
+        mask is computed on the leaf's device against the shadow of the last
+        image this manager flushed or restored.  That is exact: every flush
+        leaves the arena image equal to the flushed bytes.  A manager with
+        no shadow of the right size (a fresh one over a used arena) copies
+        the arena image to the device first.  For a leaf off the host
+        (:func:`_off_host`) whose image has its shape and dtype, only what
+        the mask asks for then leaves the device: with every block dirty,
+        the whole leaf straight into the image (``arena.rewrite``); else the
+        dirty blocks, gathered on the device, and their indices
+        (``arena.flush_blocks``).  Otherwise the whole leaf goes to the host
+        and through ``arena.flush`` with the mask (auto and full modes, a
+        first flush and a reallocation take the arena's own rule), which in
+        delta mode keeps a CUDA leaf's page-locked copy as a new image.
         """
         mode = self.policy.persist_mode
+        bb = self.arena.block_bytes
         cur = self.arena.peek(name)
         shadow = self._shadow.pop(name, None)
         nbytes = live.numel() * live.element_size()
@@ -319,28 +364,51 @@ class EasyCrashManager:
             for t in (live, shadow):
                 if t is not None and t.device == live.device:
                     t.record_stream(stream)
+        if mode == "delta":
+            self._shadow[name] = live
         mask = None
         if mode == "delta" and cur is not None and cur.nbytes == nbytes:
+            direct = _off_host(live) and cur.shape == tuple(live.shape) \
+                and cur.dtype == _host_dtype(live)
             with span("flush.mask", self.stats, "mask_seconds"):
                 if shadow is None or shadow.numel() * shadow.element_size() != nbytes:
                     # a copy on the CPU too: the arena writes its image in place
                     shadow = _byte_tensor(cur).to(live.device, copy=True)
-                mask = delta_block_mask(shadow, live, self.arena.block_bytes).cpu().numpy()
+                mask = delta_block_mask(shadow, live, bb)
+                if direct:
+                    dense = int(torch.count_nonzero(mask)) == mask.numel()
+                    index = None if dense else torch.nonzero(mask).squeeze(1)
+                else:
+                    mask = mask.cpu().numpy()
+            if direct:
+                src = _byte_tensor(live)
+                if dense:
+                    with span("arena.flush", self.stats, "arena_seconds"):
+                        return self.arena.rewrite(name, lambda image: _byte_tensor(image).copy_(src))
+                with span("flush.to_host", self.stats, "copy_seconds"):
+                    index, blocks = _gathered(src, index, bb)
+                with span("arena.flush", self.stats, "arena_seconds"):
+                    return self.arena.flush_blocks(name, index, blocks)
         with span("flush.to_host", self.stats, "copy_seconds"):
             host = self._host_copy(name, live)
         if mask is None:  # auto, full, or a first flush / reallocation: no compare
             with span("flush.mask", self.stats, "mask_seconds"):
-                mask = persist_mask_for(mode, cur, host, self.arena.block_bytes)
-        if mode == "delta":
-            self._shadow[name] = live
-        return mask, host
+                mask = persist_mask_for(mode, cur, host, bb)
+        with span("arena.flush", self.stats, "arena_seconds"):
+            if live.is_cuda and mode == "delta":  # the page-locked copy may become the image
+                written = self.arena.flush(name, host, dirty_resident_mask=mask, adopt=True)
+            else:
+                written = self.arena.flush(name, host, dirty_resident_mask=mask)
+        if self.arena.peek(name) is host:  # the image now: the next flush stages elsewhere
+            self._pinned.pop(name, None)
+        return written
 
     def _host_copy(self, name: str, live: torch.Tensor) -> np.ndarray:
         """The leaf's bytes on the host, as :func:`host_array` gives them.
 
         A CUDA leaf goes through a page-locked buffer this manager keeps per
         leaf (a DMA on the current stream, waited for), valid until the
-        leaf's next flush: the arena copies what it keeps."""
+        leaf's next flush, unless the arena keeps it as the image."""
         if not live.is_cuda:
             return host_array(live)
         src = live.view(torch.int16) if live.dtype == torch.bfloat16 else live

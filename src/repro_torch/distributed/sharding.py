@@ -315,8 +315,8 @@ def register_op_strategies() -> None:
         return [([p, p], [p, p, p]) for p in (R, S(0), S(2))]
 
     @register_sharding(ops.flash_attention.default)
-    def _flash(q, k, v, causal, window, block_k):
-        return [([p], [p, p, p, None, None, None]) for p in (R, S(0), S(2))]
+    def _flash(q, k, v, causal, window, block_k, scale=None):
+        return [([p], [p, p, p, None, None, None, None]) for p in (R, S(0), S(2))]
 
     @register_sharding(torch.ops.aten.scatter_reduce.two)
     def _scatter_reduce(self, dim, index, src, reduce, include_self=True):

@@ -12,6 +12,7 @@ at first use by :mod:`._build`.
   flash_attention  — blockwise online-softmax attention (prefill)
   rwkv6_scan       — RWKV-6 matrix-state scan (RWKV prefill)
   rglru_scan       — RG-LRU diagonal recurrence (RecurrentGemma prefill)
+  ssm_update       — Mamba-2 decode state update (Granite-4.0-H decode)
 """
 
 

@@ -49,6 +49,12 @@ SIGNATURES: Dict[str, Tuple[str, tuple, type]] = {
          ctypes.c_int, ctypes.c_void_p),
         ctypes.c_int,
     ),
+    "ssm_update": (
+        "ssm_update_fwd",
+        (ctypes.c_void_p,) * 8 + (ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p),
+        ctypes.c_int,
+    ),
     "rglru_scan": (
         "rglru_scan_fwd",
         (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

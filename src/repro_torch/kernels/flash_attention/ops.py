@@ -84,8 +84,10 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     *, causal: bool = True, window: Optional[int] = None,
     block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """q, k, v: (B, S, H, D) (same head counts: repeat GQA upstream)."""
+    """q, k, v: (B, S, H, D) (same head counts: repeat GQA upstream); the
+    scores are scaled by ``scale``, by default ``D ** -0.5``."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one (B, S, H, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -100,16 +102,16 @@ def flash_attention(
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     run = _launch if direct_launch(q) else torch.ops.repro_torch.flash_attention
-    return run(q, k, v, causal, window or 0, bk)
+    return run(q, k, v, causal, window or 0, bk, scale)
 
 
 flash_attention.launches = 0
 
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
-            block_k: int) -> Tensor:
-    """The CUDA kernels (``window`` 0: none; the op's CUDA
-    implementation)."""
+            block_k: int, scale: Optional[float] = None) -> Tensor:
+    """The CUDA kernels (``window`` 0: none; ``scale`` None: ``D ** -0.5``;
+    the op's CUDA implementation)."""
     b, s, h, d = q.shape
     dk = kernel_head_dim(d)
     route = kernel_route(q.dtype, dk, block_k)
@@ -117,7 +119,7 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
         q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
     q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     out = torch.empty_like(q)
-    scale = float(np.float32(d ** -0.5))
+    scale = float(np.float32(d ** -0.5 if scale is None else scale))
     fn = _build.load("flash_attention").flash_attention_fwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -134,10 +136,11 @@ _flash_attention_op = torch.library.custom_op("repro_torch::flash_attention", _l
 
 
 @_flash_attention_op.register_kernel("cpu")
-def _(q, k, v, causal, window, block_k):
+def _(q, k, v, causal, window, block_k, scale=None):
     out = ref.attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                  causal=causal, window=window or None)
+                                  causal=causal, window=window or None, scale=scale)
     return out.transpose(1, 2)
 
 
-_flash_attention_op.register_fake(lambda q, k, v, causal, window, block_k: torch.empty_like(q))
+_flash_attention_op.register_fake(
+    lambda q, k, v, causal, window, block_k, scale=None: torch.empty_like(q))

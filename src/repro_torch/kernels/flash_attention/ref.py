@@ -11,13 +11,13 @@ NEG_INF = -1e30
 
 def attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    *, causal: bool = True, window: Optional[int] = None,
+    *, causal: bool = True, window: Optional[int] = None, scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """q, k, v: (B, H, S, D) -> (B, H, S, D); f32 inside, rounded once to
-    q's dtype."""
+    """q, k, v: (B, H, S, D) -> (B, H, S, D); the scores scaled by ``scale``
+    (default ``D ** -0.5``); f32 inside, rounded once to q's dtype."""
     d = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    s = s * (d ** -0.5)
+    s = s * (d ** -0.5 if scale is None else scale)
     sq, sk = q.shape[2], k.shape[2]
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]

@@ -142,7 +142,7 @@ def run(args, params: Optional[Dict[str, Any]] = None, prompts: Optional[torch.T
     flush_bytes = []
     for step in range(start, args.decode_steps):
         t0 = time.perf_counter()
-        token, cache = decode_fn(params, cache, token)
+        token, cache, _ = decode_fn(params, cache, token)
         tokens[:, p0 + 1 + step] = token[:, 0]
         _sync(device)
         t1 = time.perf_counter()

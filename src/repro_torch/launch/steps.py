@@ -23,6 +23,8 @@
 #   abstract_train_state and abstract_cache take the "model" axis's size
 #   and pad the heads to it (models/padding.py), where XLA pads them in
 #   the compiled step.
+# * make_decode_fn's step also returns the step's logits (B, V), after the
+#   next token and the cache.
 """Step functions shared by the trainer, server, and dry-run.
 
 They are mesh-agnostic; spec trees hold *logical* axis-name tuples
@@ -211,11 +213,14 @@ def make_prefill_step(cfg: ModelConfig, impl: str = "reference"):
 
 
 def make_decode_fn(cfg: ModelConfig):
+    """Greedy decode step: (params, cache, token) -> (next token, cache,
+    the step's logits (B, V))."""
     def serve_step(params, cache, token):
         logits, new_cache = decode_step(cfg, params, token, cache)
         # the vocab gathered first: DTensor's argmax over a sharded dim fails at batch 1
-        next_token = gathered(logits[:, -1, :], -1).argmax(dim=-1).to(torch.int32)[:, None]
-        return next_token, new_cache
+        last = gathered(logits[:, -1, :], -1)
+        next_token = last.argmax(dim=-1).to(torch.int32)[:, None]
+        return next_token, new_cache, last
 
     return serve_step
 

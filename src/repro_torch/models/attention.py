@@ -29,6 +29,9 @@
 #   head's output is exactly 0; decode drops the padded heads before its
 #   products over the cache and puts them back as zeros after, and on a
 #   plain tensor (one device) projects the real heads only.
+# * A HybridConfig (Granite-4.0-H) scales the scores by its attn_scale and,
+#   with rope False, takes no rotary embedding (attn_scale, uses_rope); every
+#   other config keeps the head dim's inverse root and RoPE, bit for bit.
 """GQA attention: train/prefill (full-sequence) and decode (KV cache) paths.
 
 Supports causal and local-window (RecurrentGemma) masking.  The
@@ -44,7 +47,7 @@ import torch
 from ..device import resolve_device
 from ..distributed.sharding import (gathered, heads_merged, heads_split, is_dtensor, is_sharded,
                                     with_logical)
-from .config import ModelConfig
+from .config import HybridConfig, ModelConfig
 from .layers import _in_dtype, apply_rope, dtype_of, einsum, matmul, normal_init, rope_angles
 from .padding import pad_heads, q_groups, unpad_heads
 
@@ -107,12 +110,25 @@ def _mask_bias(seq_q: int, seq_k: int, offset: int, window: Optional[int],
     return torch.where(ok, 0.0, NEG_INF).to(dtype)
 
 
-def _scaled(scores: torch.Tensor, d_head: int) -> torch.Tensor:
-    """``scores * d_head**-0.5`` as f32, the way compiled XLA computes JAX's
+def attn_scale(cfg: ModelConfig) -> float:
+    """The scores' scale: a HybridConfig's ``attn_scale``, else
+    ``head_dim ** -0.5``."""
+    if isinstance(cfg, HybridConfig) and cfg.attn_scale is not None:
+        return cfg.attn_scale
+    return cfg.head_dim ** -0.5
+
+
+def uses_rope(cfg: ModelConfig) -> bool:
+    """Whether q and k take the rotary embedding (a HybridConfig may say no)."""
+    return not isinstance(cfg, HybridConfig) or cfg.rope
+
+
+def _scaled(scores: torch.Tensor, scale: float) -> torch.Tensor:
+    """``scores * scale`` as f32, the way compiled XLA computes JAX's
     ``(einsum(...) * scale).astype(f32)``: the Python scale takes the scores'
     dtype, and the product keeps f32 (excess precision skips its rounding
     to the scores' dtype)."""
-    return scores.float() * _in_dtype(d_head ** -0.5, scores.dtype)
+    return scores.float() * _in_dtype(scale, scores.dtype)
 
 
 def _softmax(x: torch.Tensor) -> torch.Tensor:
@@ -136,9 +152,10 @@ def attention_full(
     q = _split_heads(matmul(x, p["wq"]), n_q, dh)
     k = _split_heads(matmul(x, p["wk"]), hkv, dh, kv=True)
     v = _split_heads(matmul(x, p["wv"]), hkv, dh, kv=True)
-    cos, sin = rope_angles(positions, dh, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if uses_rope(cfg):
+        cos, sin = rope_angles(positions, dh, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     q = with_logical(q, "batch", None, "heads", None)
     k = with_logical(k, "batch", None, "kv_heads" if hkv % 8 == 0 else None, None)
     # k and v repeated to q's heads (zero heads in q's padded slots) and
@@ -150,11 +167,11 @@ def attention_full(
     if impl == "kernel":
         from ..kernels.flash_attention.ops import flash_attention
 
-        out = flash_attention(q, k, v, causal=True, window=window)
+        out = flash_attention(q, k, v, causal=True, window=window, scale=attn_scale(cfg))
     elif impl == "chunked":
-        out = _attention_chunked(q, k, v, window=window)
+        out = _attention_chunked(q, k, v, window=window, scale=attn_scale(cfg))
     elif impl == "reference":
-        scores = _scaled(einsum("bqhd,bkhd->bhqk", q, k), dh)
+        scores = _scaled(einsum("bqhd,bkhd->bhqk", q, k), attn_scale(cfg))
         bias = _mask_bias(q.shape[1], k.shape[1], 0, window, torch.float32, x.device)
         probs = _softmax(scores + bias).to(q.dtype)
         out = einsum("bhqk,bkhd->bqhd", probs, v)
@@ -167,19 +184,20 @@ def attention_full(
 
 def _attention_chunked(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    *, window: Optional[int] = None, chunk: int = 512,
+    *, window: Optional[int] = None, chunk: int = 512, scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash-style causal attention as a loop over KV chunks.
 
     Never materializes the (S x S) score matrix — per step only a
     (B, H, S, chunk) tile exists.  The same online-softmax recurrence as the
     flash-attention kernel, in f32: ``-1e30`` masking, ``p`` zeroed where
-    masked, ``l`` clamped at 1e-30.  q, k, v: (B, S, H, D).
+    masked, ``l`` clamped at 1e-30.  q, k, v: (B, S, H, D); the scores
+    scaled by ``scale`` (default ``D ** -0.5``).
     """
     b, s, h, d = q.shape
     c = min(chunk, s)
     assert s % c == 0, (s, c)
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     qf = q.float() * scale
     kc = k.float().reshape(b, s // c, c, h, d)
     vc = v.float().reshape(b, s // c, c, h, d)
@@ -254,9 +272,10 @@ def attention_decode(
     q = _split_heads(matmul(x, wq), wq.shape[-1] // dh, dh)
     k = _split_heads(matmul(x, p["wk"]), hkv, dh, kv=True)
     v = _split_heads(matmul(x, p["wv"]), hkv, dh, kv=True)
-    cos, sin = rope_angles(t.reshape(1), dh, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if uses_rope(cfg):
+        cos, sin = rope_angles(t.reshape(1), dh, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     q = with_logical(q, "batch", None, "heads", None)
     if q.shape[2] != hq:
         # padded heads on a mesh: the products over the cache take the real ones
@@ -280,7 +299,8 @@ def attention_decode(
     vv = _repeat_kv(cache_v, hq // hkv)
     # heads stay a batch dim of 4-D products (B, H, 1, D) @ (B, H, D, L): a
     # sharded cache is read where it lies
-    scores = _scaled(matmul(q.transpose(1, 2), kk.permute(0, 2, 3, 1)), dh)  # (B, H, 1, L)
+    scores = _scaled(matmul(q.transpose(1, 2), kk.permute(0, 2, 3, 1)),
+                     attn_scale(cfg))  # (B, H, 1, L)
     kpos = torch.arange(length, device=x.device)
     if window:
         valid = (kpos <= t % length) | (t >= length)  # rolling buffer: all valid once full

@@ -1,4 +1,9 @@
-# Copy of repro/models/config.py; unchanged.
+# Copy of repro/models/config.py.  What differs: the layer kind "mamba"
+# (Mamba-2, arXiv:2405.21060) and HybridConfig, a ModelConfig with a
+# MambaConfig and Granite-4.0-H's scalars, for the archs only the port runs
+# (configs.PORT_ARCHS); ModelConfig's own fields are JAX's, so asdict of the
+# ten shared archs stays equal.  groups_from_layer_types reads a published
+# per-layer kind list into layer groups; scaled_down shrinks MambaConfig too.
 """Model / shape configuration for the architecture zoo.
 
 One :class:`ModelConfig` describes any of the ten assigned architectures
@@ -13,7 +18,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Literal, Optional, Sequence, Tuple
 
-LayerKind = Literal["attn", "rec", "rwkv"]
+LayerKind = Literal["attn", "rec", "rwkv", "mamba"]
 
 
 @dataclass(frozen=True)
@@ -45,6 +50,32 @@ class RecurrentConfig:
 @dataclass(frozen=True)
 class RWKVConfig:
     head_dim: int = 64
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    """Mamba-2 mixer (state-space duality, arXiv:2405.21060): ``n_heads``
+    heads of ``head_dim`` channels, each with a ``d_state``-wide state per
+    channel; B and C shared by the heads of each of ``n_groups`` groups; a
+    depthwise causal conv of ``d_conv`` taps over x, B and C; the prefill's
+    chunked scan in chunks of ``chunk`` tokens."""
+
+    n_heads: int
+    head_dim: int
+    d_state: int
+    n_groups: int = 1
+    d_conv: int = 4
+    chunk: int = 256
+    conv_bias: bool = True
+
+    @property
+    def d_inner(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def conv_dim(self) -> int:
+        """Channels of the conv: x, B and C."""
+        return self.d_inner + 2 * self.n_groups * self.d_state
 
 
 @dataclass(frozen=True)
@@ -114,6 +145,53 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class HybridConfig(ModelConfig):
+    """A ModelConfig with Mamba-2 layers (kind "mamba") and the scalars of
+    IBM's Granite-4.0-H (HF ``granitemoehybrid``): the embedding times
+    ``embedding_multiplier``, each sublayer's output times
+    ``residual_multiplier`` before its residual add, the logits divided by
+    ``logits_scaling``, attention scores times ``attn_scale`` (None: the
+    head dim's inverse root) and no rotary embedding unless ``rope``."""
+
+    mamba: Optional[MambaConfig] = None
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attn_scale: Optional[float] = None
+    rope: bool = True
+
+    def validate(self) -> "HybridConfig":
+        super().validate()
+        kinds = {k for pat, _ in self.groups for k in pat}
+        if "mamba" in kinds:
+            m = self.mamba
+            assert m is not None and m.n_heads % m.n_groups == 0, self.name
+        return self
+
+
+def groups_from_layer_types(types: Sequence[str]) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
+    """Layer groups from a per-layer kind list ("mamba" / "attention", as a
+    HF ``layer_types`` gives it): the list cut after each attention layer,
+    equal neighbouring pieces merged into one group with a repeat count."""
+    kinds = ["attn" if t == "attention" else t for t in types]
+    pieces, cur = [], []
+    for k in kinds:
+        cur.append(k)
+        if k == "attn":
+            pieces.append(tuple(cur))
+            cur = []
+    if cur:
+        pieces.append(tuple(cur))
+    groups: list = []
+    for pat in pieces:
+        if groups and groups[-1][0] == pat:
+            groups[-1][1] += 1
+        else:
+            groups.append([pat, 1])
+    return tuple((pat, rep) for pat, rep in groups)
+
+
+@dataclass(frozen=True)
 class ShapeConfig:
     """One benchmark cell: sequence x batch x step kind."""
 
@@ -165,6 +243,12 @@ def scaled_down(cfg: ModelConfig, layers: int = 2, width: int = 64) -> ModelConf
         )
     rec = dataclasses.replace(cfg.rec, d_rnn=width, window=32) if cfg.rec else None
     rwkv = dataclasses.replace(cfg.rwkv, head_dim=16) if cfg.rwkv else None
+    extra = {}
+    if isinstance(cfg, HybridConfig) and cfg.mamba is not None:
+        # heads of 16 channels; the inner width keeps its ratio to d_model
+        extra["mamba"] = dataclasses.replace(
+            cfg.mamba, n_heads=max(2, cfg.mamba.d_inner * width // cfg.d_model // 16),
+            head_dim=16, d_state=16, chunk=8)
     return dataclasses.replace(
         cfg,
         n_layers=layers,
@@ -181,4 +265,5 @@ def scaled_down(cfg: ModelConfig, layers: int = 2, width: int = 64) -> ModelConf
         frontend_tokens=min(cfg.frontend_tokens, 4),
         attn_window=min(cfg.attn_window, 32) if cfg.attn_window else None,
         grad_accum=1,
+        **extra,
     ).validate()

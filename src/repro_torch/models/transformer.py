@@ -29,6 +29,13 @@
 #   from logits replicated over the vocab: DTensor's gather on a
 #   vocab-sharded dim gives a masked partial sum that it then fails to
 #   reduce-scatter (torch 2.13).
+# * The layer kind "mamba" (Mamba-2, models/mamba2.py) and a HybridConfig's
+#   scalars (Granite-4.0-H): the embedding times embedding_multiplier, each
+#   sublayer's output times residual_multiplier before its residual add (in
+#   f32, rounded once), the logits divided by logits_scaling.  Prefill and
+#   decode put each run of consecutive Mamba-2 layers in one profiler range,
+#   "model.mamba".  The JAX package has neither; a ModelConfig's bits are
+#   unchanged.
 """LM assembly: embed -> layer loop -> logits.
 
 Per layer kind:
@@ -37,6 +44,7 @@ Per layer kind:
   rec   — RG-LRU recurrence + gated MLP
   rwkv  — RWKV-6 time-mix + gated MLP (channel-mix swapped for SwiGLU of the
           same width; parameter-count equivalent)
+  mamba — Mamba-2 mixer + gated MLP (Granite-4.0-H)
 
 each as RMSNorm -> mixer -> residual -> RMSNorm -> MLP -> residual.
 
@@ -60,8 +68,9 @@ from .attention import (
     attn_specs,
     init_kv_cache,
     kv_cache_specs,
+    uses_rope,
 )
-from .config import ModelConfig
+from .config import HybridConfig, ModelConfig
 from .layers import (
     apply_rope,
     dtype_of,
@@ -72,6 +81,14 @@ from .layers import (
     normal_init,
     rms_norm,
     rope_angles,
+)
+from .mamba2 import (
+    mamba_decode_step,
+    mamba_full,
+    mamba_init_state,
+    mamba_params,
+    mamba_specs,
+    mamba_state_specs,
 )
 from .moe import moe_apply, moe_params, moe_specs
 from .rglru import (
@@ -99,8 +116,38 @@ def _layer_uses_moe(cfg: ModelConfig, kind: str) -> bool:
 
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind not in ("attn", "rec", "rwkv"):
+    if kind not in ("attn", "rec", "rwkv", "mamba"):
         raise ValueError(kind)
+    if kind == "mamba" and getattr(cfg, "mamba", None) is None:
+        raise ValueError(f"{cfg.name}: a mamba layer needs a HybridConfig with a MambaConfig")
+
+
+def _multipliers(cfg: ModelConfig) -> Tuple[float, float, float]:
+    """(embedding, residual, logits divisor): a HybridConfig's, else 1s."""
+    if isinstance(cfg, HybridConfig):
+        return cfg.embedding_multiplier, cfg.residual_multiplier, cfg.logits_scaling
+    return 1.0, 1.0, 1.0
+
+
+class _MambaRanges:
+    """One profiler range ``model.mamba`` around each run of consecutive
+    Mamba-2 layers of a step: call :meth:`at` before each sublayer and
+    :meth:`close` after the last."""
+
+    def __init__(self):
+        self._open = None
+
+    def at(self, kind: str) -> None:
+        if kind == "mamba" and self._open is None:
+            self._open = torch.profiler.record_function("model.mamba")
+            self._open.__enter__()
+        elif kind != "mamba":
+            self.close()
+
+    def close(self) -> None:
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -114,7 +161,8 @@ def _layer(tree: Any, i: int) -> Any:
 def _sublayer_params(cfg: ModelConfig, kind: str, gen: torch.Generator, n: int) -> Dict:
     _check_kind(cfg, kind)
     dt = dtype_of(cfg)
-    mixer = {"attn": attn_params, "rec": rglru_params, "rwkv": rwkv_params}[kind]
+    mixer = {"attn": attn_params, "rec": rglru_params, "rwkv": rwkv_params,
+             "mamba": mamba_params}[kind]
     p = {
         "norm1": torch.zeros((n, cfg.d_model), dtype=dt, device=gen.device),
         "norm2": torch.zeros((n, cfg.d_model), dtype=dt, device=gen.device),
@@ -135,6 +183,8 @@ def _sublayer_specs(cfg: ModelConfig, kind: str, tp: int) -> Dict:
         p["rec"] = rglru_specs()
     elif kind == "rwkv":
         p["rwkv"] = rwkv_specs()
+    elif kind == "mamba":
+        p["mamba"] = mamba_specs()
     if _layer_uses_moe(cfg, kind):
         p["moe"] = moe_specs(cfg)
     else:
@@ -185,6 +235,8 @@ def _apply_sublayer(
         h = attention_full(lp["attn"], h, cfg, positions, window=cfg.attn_window, impl=impl)
     elif kind == "rec":
         h = rglru_full(lp["rec"], h, cfg, impl=impl)
+    elif kind == "mamba":
+        h = mamba_full(lp["mamba"], h, cfg)
     else:
         h = rwkv_scan_full(lp["rwkv"], h, cfg, impl=impl)
     return _mlp_half(cfg, lp, x, h)
@@ -199,14 +251,18 @@ def _mlp_half(cfg: ModelConfig, lp: Dict, x: torch.Tensor, y: torch.Tensor,
     Compiled XLA (excess precision allowed, its default) hands the second
     norm the sum ``x + y`` unrounded, in f32, while the residual stream
     takes it rounded to the model's dtype.  The port computes it the same
-    way; in f32 nothing changes.
+    way; in f32 nothing changes.  A HybridConfig scales y and the MLP's
+    output by its residual multiplier, in f32, and rounds each sum once.
     """
-    s = x.float() + y.float()
+    rm = _multipliers(cfg)[1]
+    s = x.float() + y.float() if rm == 1.0 else x.float() + y.float() * rm
     h = rms_norm(s, lp["norm2"], cfg.norm_eps).to(x.dtype)
     if "moe" in lp:
         out, aux = moe_apply(lp["moe"], h, cfg, decode=decode)
     else:
         out, aux = mlp_apply(lp["mlp"], h, cfg), 0.0
+    if rm != 1.0:
+        return (s.to(x.dtype).float() + out.float() * rm).to(x.dtype), aux
     return s.to(x.dtype) + out, aux
 
 
@@ -237,9 +293,15 @@ def _take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                                                          device=table.device))
 
 
+def _embed_rows(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    x = _take_rows(params["embed"], tokens)
+    em = _multipliers(cfg)[0]
+    return x if em == 1.0 else (x.float() * em).to(x.dtype)
+
+
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
            patches: Optional[torch.Tensor]) -> torch.Tensor:
-    x = _take_rows(params["embed"], tokens)
+    x = _embed_rows(cfg, params, tokens)
     if patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     return with_logical(x, "batch", "seq", None)
@@ -251,6 +313,9 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
         logits = matmul(x, params["embed"].t())
     else:
         logits = matmul(x, params["unembed"])
+    ls = _multipliers(cfg)[2]
+    if ls != 1.0:
+        logits = logits / ls
     return with_logical(logits, "batch", None, "vocab")
 
 
@@ -300,6 +365,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dic
                                               window=cfg.attn_window, device=device)
             elif kind == "rec":
                 g[f"pos{pi}"] = rglru_init_state(cfg, rep, batch, device)
+            elif kind == "mamba":
+                g[f"pos{pi}"] = mamba_init_state(cfg, rep, batch, device)
             else:
                 g[f"pos{pi}"] = rwkv_init_state(cfg, rep, batch, device)
         cache[f"group{gi}"] = g
@@ -317,6 +384,8 @@ def cache_specs(cfg: ModelConfig, tp: int = 16) -> Dict:
                 g[f"pos{pi}"] = rglru_state_specs()
             elif kind == "rwkv":
                 g[f"pos{pi}"] = rwkv_state_specs()
+            elif kind == "mamba":
+                g[f"pos{pi}"] = mamba_state_specs()
         specs[f"group{gi}"] = g
     return specs
 
@@ -327,34 +396,47 @@ def decode_step(
     """token: (B, 1) int.  Returns (logits (B, 1, V), the cache updated in
     place (the new token's K/V, the recurrent states) and ``t`` advanced)."""
     t = cache["t"]
-    x = with_logical(_take_rows(params["embed"], token), "batch", None, None)
+    x = with_logical(_embed_rows(cfg, params, token), "batch", None, None)
     new_cache: Dict[str, Any] = {"t": t + 1}
-    for gi, (pattern, rep) in enumerate(cfg.groups):
-        gparams = params[f"group{gi}"]
-        gcache = cache[f"group{gi}"]
-        for i in range(rep):
-            layer_params = _layer(gparams, i)
-            for pi, kind in enumerate(pattern):
-                _check_kind(cfg, kind)
-                lp = layer_params[f"pos{pi}"]
-                lc = gcache[f"pos{pi}"]
-                hin = rms_norm(x, lp["norm1"], cfg.norm_eps)
-                if kind == "attn":
-                    y, _, _ = attention_decode(lp["attn"], hin, lc["k"][i], lc["v"][i], cfg, t,
-                                               window=cfg.attn_window)
-                elif kind == "rec":
-                    y, hh, conv = rglru_decode_step(lp["rec"], hin, lc["h"][i], lc["conv"][i],
-                                                    cfg)
-                    lc["h"][i].copy_(hh)
-                    lc["conv"][i].copy_(conv)
-                else:
-                    y, S, x_last = rwkv_decode_step(lp["rwkv"], hin, lc["S"][i],
-                                                    lc["x_last"][i], cfg)
-                    lc["S"][i].copy_(S)
-                    lc["x_last"][i].copy_(x_last)
-                x, _ = _mlp_half(cfg, lp, x, y, decode=True)
-        new_cache[f"group{gi}"] = gcache
+    ranges = _MambaRanges()
+    try:
+        for gi, (pattern, rep) in enumerate(cfg.groups):
+            gparams = params[f"group{gi}"]
+            gcache = cache[f"group{gi}"]
+            for i in range(rep):
+                layer_params = _layer(gparams, i)
+                for pi, kind in enumerate(pattern):
+                    _check_kind(cfg, kind)
+                    ranges.at(kind)
+                    lp = layer_params[f"pos{pi}"]
+                    lc = gcache[f"pos{pi}"]
+                    x = _decode_sublayer(cfg, kind, lp, lc, i, x, t)
+            new_cache[f"group{gi}"] = gcache
+    finally:
+        ranges.close()
     return _logits(cfg, params, x), new_cache
+
+
+def _decode_sublayer(cfg: ModelConfig, kind: str, lp: Dict, lc: Dict, i: int,
+                     x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """One layer of a decode step; layer ``i`` of the stacked cache ``lc`` is
+    updated in place."""
+    hin = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if kind == "attn":
+        y, _, _ = attention_decode(lp["attn"], hin, lc["k"][i], lc["v"][i], cfg, t,
+                                   window=cfg.attn_window)
+    elif kind == "rec":
+        y, hh, conv = rglru_decode_step(lp["rec"], hin, lc["h"][i], lc["conv"][i], cfg)
+        lc["h"][i].copy_(hh)
+        lc["conv"][i].copy_(conv)
+    elif kind == "mamba":
+        y, conv = mamba_decode_step(lp["mamba"], hin, lc["ssm"][i], lc["conv"][i], cfg)
+        lc["conv"][i].copy_(conv)
+    else:
+        y, S, x_last = rwkv_decode_step(lp["rwkv"], hin, lc["S"][i], lc["x_last"][i], cfg)
+        lc["S"][i].copy_(S)
+        lc["x_last"][i].copy_(x_last)
+    return _mlp_half(cfg, lp, x, y, decode=True)[0]
 
 
 # ------------------------------------------------------------------- prefill
@@ -371,32 +453,41 @@ def prefill(
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     cache: Dict[str, Any] = {"t": torch.tensor(S, dtype=torch.int32, device=x.device)}
 
-    for gi, (pattern, rep) in enumerate(cfg.groups):
-        gparams = params[f"group{gi}"]
-        per_layer = []
-        for i in range(rep):
-            layer_params = _layer(gparams, i)
-            new_layer_cache = {}
-            for pi, kind in enumerate(pattern):
-                _check_kind(cfg, kind)
-                lp = layer_params[f"pos{pi}"]
-                hin = rms_norm(x, lp["norm1"], cfg.norm_eps)
-                if kind == "attn":
-                    y = attention_full(lp["attn"], hin, cfg, positions,
-                                       window=cfg.attn_window, impl=impl)
-                    new_layer_cache[f"pos{pi}"] = _kv_for_cache(cfg, lp["attn"], hin, positions)
-                elif kind == "rec":
-                    y, new_layer_cache[f"pos{pi}"] = rglru_full(lp["rec"], hin, cfg, impl=impl,
-                                                                return_state=True)
-                else:
-                    y, new_layer_cache[f"pos{pi}"] = rwkv_scan_full(lp["rwkv"], hin, cfg,
+    ranges = _MambaRanges()
+    try:
+        for gi, (pattern, rep) in enumerate(cfg.groups):
+            gparams = params[f"group{gi}"]
+            per_layer = []
+            for i in range(rep):
+                layer_params = _layer(gparams, i)
+                new_layer_cache = {}
+                for pi, kind in enumerate(pattern):
+                    _check_kind(cfg, kind)
+                    ranges.at(kind)
+                    lp = layer_params[f"pos{pi}"]
+                    hin = rms_norm(x, lp["norm1"], cfg.norm_eps)
+                    if kind == "attn":
+                        y = attention_full(lp["attn"], hin, cfg, positions,
+                                           window=cfg.attn_window, impl=impl)
+                        new_layer_cache[f"pos{pi}"] = _kv_for_cache(cfg, lp["attn"], hin,
+                                                                    positions)
+                    elif kind == "rec":
+                        y, new_layer_cache[f"pos{pi}"] = rglru_full(lp["rec"], hin, cfg,
                                                                     impl=impl, return_state=True)
-                x, _ = _mlp_half(cfg, lp, x, y)
-            per_layer.append(new_layer_cache)
-        cache[f"group{gi}"] = {
-            pos: {leaf: torch.stack([c[pos][leaf] for c in per_layer]) for leaf in leaves}
-            for pos, leaves in per_layer[0].items()
-        }
+                    elif kind == "mamba":
+                        y, new_layer_cache[f"pos{pi}"] = mamba_full(lp["mamba"], hin, cfg,
+                                                                    return_state=True)
+                    else:
+                        y, new_layer_cache[f"pos{pi}"] = rwkv_scan_full(
+                            lp["rwkv"], hin, cfg, impl=impl, return_state=True)
+                    x, _ = _mlp_half(cfg, lp, x, y)
+                per_layer.append(new_layer_cache)
+            cache[f"group{gi}"] = {
+                pos: {leaf: torch.stack([c[pos][leaf] for c in per_layer]) for leaf in leaves}
+                for pos, leaves in per_layer[0].items()
+            }
+    finally:
+        ranges.close()
     logits = _logits(cfg, params, x[:, -1:, :])
     return logits[:, 0, :], cache
 
@@ -405,8 +496,9 @@ def _kv_for_cache(cfg: ModelConfig, p: Dict, x: torch.Tensor, positions: torch.T
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
     k = _split_heads(matmul(x, p["wk"]), hkv, dh, kv=True)
     v = _split_heads(matmul(x, p["wv"]), hkv, dh, kv=True)
-    cos, sin = rope_angles(positions, dh, cfg.rope_theta)
-    k = apply_rope(k, cos, sin)
+    if uses_rope(cfg):
+        cos, sin = rope_angles(positions, dh, cfg.rope_theta)
+        k = apply_rope(k, cos, sin)
     if cfg.attn_window:
         k = k[:, -cfg.attn_window:]
         v = v[:, -cfg.attn_window:]

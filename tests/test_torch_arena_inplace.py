@@ -216,3 +216,70 @@ def test_manager_delta_flushes_write_one_image_in_place(tmp_path):
             again = NVMArena.reattach(backing)
             assert again.peek("x").tobytes() == x.numpy().tobytes()
             assert int(again.get("__step__")) == 5
+
+
+def _rows(live, mask):
+    """``live``'s blocks where ``mask``, as ``flush_blocks`` takes them: the
+    indices and a row each, a partial last block zero-padded."""
+    raw = np.ascontiguousarray(live).reshape(-1).view(np.uint8)
+    padded = np.zeros(obj_num_blocks(live, BB) * BB, dtype=np.uint8)
+    padded[:raw.size] = raw
+    index = np.flatnonzero(mask)
+    return index, padded.reshape(-1, BB)[index]
+
+
+@pytest.mark.parametrize("mask_kind", ("all", "none", "sparse"))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flush_blocks_and_rewrite_match_flush(case, mask_kind):
+    """The same flushes given as gathered blocks (flush_blocks) or, where
+    every block is dirty, written in place by the caller (rewrite) leave
+    the image and the counters flush leaves, in the same array."""
+    dtype, shape, order = CASES[case]
+    rng = np.random.default_rng([sorted(CASES).index(case), len(mask_kind)])
+    values = _values(dtype, shape, order, rng, 5)
+    nb = obj_num_blocks(values[0], BB)
+    want, got = NVMArena(block_bytes=BB), NVMArena(block_bytes=BB)
+    want.flush("x", values[0])
+    got.flush("x", values[0])
+    image = got.peek("x")
+    for live in values[1:]:
+        mask = _mask(mask_kind, nb, rng)
+        n = want.flush("x", live, dirty_resident_mask=mask)
+        if mask_kind == "all":
+            src = np.ascontiguousarray(live).reshape(-1).view(np.uint8)
+            assert got.rewrite("x", lambda img: np.copyto(img.reshape(-1).view(np.uint8), src)) == n
+        else:
+            assert got.flush_blocks("x", *_rows(live, mask)) == n
+        assert got.peek("x") is image
+        assert image.tobytes() == want.peek("x").tobytes()
+    assert got.stats.as_dict() == want.stats.as_dict()
+    assert got.stats.inplace_flushes == want.stats.inplace_flushes
+
+
+def test_flush_blocks_refuses_rows_or_indices_that_do_not_fit():
+    arena = NVMArena(block_bytes=BB)
+    arena.flush("x", np.zeros(1000, dtype=np.float32))  # 63 blocks
+    row = np.ones((1, BB), dtype=np.uint8)
+    for index, rows in (([63], row), ([-1], row), ([0, 1], row), ([0], np.ones((1, 32), np.uint8))):
+        with pytest.raises(ValueError, match="block indices"):
+            arena.flush_blocks("x", np.array(index), rows)
+    assert not arena.peek("x").any() and arena.stats.flush_ops == 1
+
+
+def test_adopt_keeps_the_buffer_of_a_first_flush_only():
+    """With adopt a first flush (or a reallocation) keeps a C-contiguous,
+    writable buffer as the image; a read-only buffer is copied, and a later
+    flush writes in place as ever."""
+    arena = NVMArena(block_bytes=BB)
+    buf = np.arange(1000, dtype=np.float32)
+    assert arena.flush("x", buf, adopt=True) == obj_num_blocks(buf, BB)
+    assert arena.peek("x") is buf
+    other = buf + 1
+    arena.flush("x", other, adopt=True)
+    assert arena.peek("x") is buf and buf.tobytes() == other.tobytes()
+    frozen = np.zeros(1200, dtype=np.float32)
+    frozen.flags.writeable = False
+    arena.flush("x", frozen, adopt=True)  # reallocated, but not writable: a copy
+    assert arena.peek("x") is not frozen and arena.peek("x").tobytes() == frozen.tobytes()
+    arena.flush("y", buf)
+    assert arena.peek("y") is not buf

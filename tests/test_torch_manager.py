@@ -252,3 +252,44 @@ def test_convert_round_trip_is_byte_exact(dtype):
         assert back[k].tobytes() == v.tobytes()
     back["v"][...] = 0  # no aliasing between the two sides
     assert t["v"].numpy().tobytes() == state["v"].tobytes()
+
+
+@pytest.mark.parametrize("on_card", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dirty", ["none", "one", "tail", "all"])
+def test_delta_flush_of_a_tensor_leaf_sends_only_what_its_mask_asks(monkeypatch, dirty, dtype,
+                                                                    on_card):
+    """After the first flush a delta flush of a leaf on the card never hands
+    the arena the whole leaf: its dirty blocks go gathered (flush_blocks), a
+    leaf with every block dirty is written straight into the image
+    (rewrite).  A CPU leaf goes whole to flush with its mask.  Either way
+    the image stays the same array and equals the live bytes.  (CPU
+    tensors here, taken for a card's where ``on_card``.)"""
+    import repro_torch.core.manager as manager_mod
+
+    monkeypatch.setattr(manager_mod, "_off_host", lambda t: on_card)
+    arena = NVMArena(block_bytes=64)
+    mgr = EasyCrashManager(arena, FlushPolicy(leaves=("x",), async_flush=False,
+                                              persist_mode="delta"))
+    x = torch.randn(1001, generator=torch.Generator().manual_seed(1)).to(dtype)
+    mgr.maybe_flush(1, {"x": x})
+    image = arena.peek("x")
+    calls = []
+    for method in ("flush", "flush_blocks", "rewrite"):
+        real = getattr(arena, method)
+        monkeypatch.setattr(arena, method, lambda name, *a, _m=method, _r=real, **k:
+                            calls.append((_m, name)) or _r(name, *a, **k))
+    if dirty == "one":
+        x[300] += 1
+    elif dirty == "tail":
+        x[1000] += 1
+    elif dirty == "all":
+        x += 1
+    before = mgr.stats.blocks_written
+    mgr.maybe_flush(2, {"x": x})
+    want = {"none": 0, "one": 1, "tail": 1, "all": -(-x.numel() * x.element_size() // 64)}[dirty]
+    assert mgr.stats.blocks_written - before == want + 1  # and __step__'s block
+    sent = [m for m, name in calls if name == "x"]
+    assert sent == (["rewrite" if dirty == "all" else "flush_blocks"] if on_card else ["flush"])
+    assert arena.peek("x") is image
+    assert image.tobytes() == x.view(torch.int16 if dtype == torch.bfloat16 else dtype).numpy().tobytes()
